@@ -8,32 +8,40 @@ CUDA toolkit:
 
 Phases, each timed:
   1. device: the card's name and power limit (nvidia-smi), torch / CUDA
-  2. build: nvcc of the MSM kernels (csrc/), gcc of the native host tail
+  2. build: nvcc of the kernels (csrc/: one library per source, built in
+     parallel), gcc of the native host tail
   3. kernel checks: every CUDA kernel of the Groth16 path against its plain
      PyTorch version on the card, at the prove's shapes, from seeded
      inputs (real curve points; doubling, cancellation and infinity cases
      included): the walk in modes mixed-unsafe, mixed-safe and general,
-     the suffix walk, each over Fq and Fq2 — outputs must be bit-equal;
-     then a full sorted MSM on the card against the Python-int oracle (G1
-     and G2)
+     the suffix walk and its epilogue (suffix_fold), each over Fq and Fq2;
+     emul, ereduce_wide and the NTT over the scalar field — outputs must
+     be bit-equal; then a full sorted MSM on the card against the
+     Python-int oracle (G1 and G2)
   4. main path: the sha256 circuit (bench_artifacts/sha256.out, 27,459
      constraints, domain 2^15) and its witness through the port's readers,
      setup with a seeded rng, 3 proofs with distinct fixed r, s, each
      verified by the host pairing check; every kernel's launch count
-     over setup and proofs must be above 0
+     over setup and proofs must be above 0, and no plain field product or
+     reduction may run on the card inside the h stage, the corrections or
+     the MSMs
   5. the kernels JSON line, the nvidia-smi line, and the result line.
 
 Exits non-zero on any failure; with no CUDA device it raises before
 printing a result.
 
 Kernel time bounds (bound_ms) are the larger of two times. Operations: the
-Montgomery products these inputs need (a skipped position, or an add with
-a point at infinity, costs none; an Fq2 product is 3 Fq products) times
+Montgomery products these inputs need (a skipped position, or an add or a
+doubling with a point at infinity, costs none; an Fq2 product is 3 Fq
+products) times
 264 32-bit multiplies per 8-limb CIOS product (8x8 a*b and 8x8 m*p
 products, low and high halves, plus 8 m = t0*n0), over the H100 SXM's
 32-bit integer multiply rate: 64 IMAD per SM per clock, half the float32
 FMA rate behind its published 67 TFLOP/s, i.e. 16.75e12/s at 700 W.
-Bytes: inputs read once and outputs written once, over 3.35 TB/s.
+Bytes: inputs read once and outputs written once, over 3.35 TB/s. Field
+elements cross every kernel boundary as int64 words of 16-bit limbs (128 B
+per element), point rows as int32 words of 16-bit limbs (64 B per Fq
+coordinate).
 """
 
 from __future__ import annotations
@@ -53,18 +61,28 @@ HBM_RATE = 3.35e12             # bytes / s, H100 SXM
 MULS_PER_MONT = 264            # 32-bit multiplies per 8-limb CIOS product
 FQ2_MULS = 3                   # Fq products per Fq2 product (Karatsuba)
 MIXED_MULS, GENERAL_MULS = 11, 16  # Montgomery products per point add
-SOURCE = "zokrates_tpu_torch/csrc/msm_sorted.cu"
+DOUBLE_MULS = 7                # Montgomery products per doubling
+ELEM_BYTES = 128               # one field element as 16 int64 words
 SEED = 2024                    # inputs of the checks, setup randomness, r and s
 NPROOFS = 3
+# kernel -> (its library, a key of kernels/cuda.SOURCES; the TPU kernel it replaces)
 REPLACES = {
-    "walk_mixed": "zokrates_tpu/kernels/msm_sorted.py:140",
-    "walk_general": "zokrates_tpu/kernels/msm_sorted.py:190",
-    "suffix": "zokrates_tpu/kernels/msm_sorted.py:278",
+    "walk_mixed": ("zkt_msm", "zokrates_tpu/kernels/msm_sorted.py:140"),
+    "walk_general": ("zkt_msm", "zokrates_tpu/kernels/msm_sorted.py:190"),
+    "suffix": ("zkt_msm", "zokrates_tpu/kernels/msm_sorted.py:278"),
+    "suffix_fold": ("zkt_msm", "zokrates_tpu/kernels/msm_sorted.py:366"),
+    "emul": ("zkt_field", "zokrates_tpu/kernels/pallas_field.py:676"),
+    "ereduce_wide": ("zkt_field", "zokrates_tpu/kernels/pallas_field.py:751"),
+    "ntt": ("zkt_ntt", "zokrates_tpu/kernels/ntt_pallas.py:40"),
 }
 # the variant whose time stands for each kernel in the kernels line: the
-# one the main path launches most (G1, safe walks, the suffix)
+# one the main path launches most or on the most data (G1, safe walks, the
+# suffix and epilogue of the h MSM, the matvec's product and reduction, the
+# batch of 3 forward transforms)
 MAIN_VARIANT = {"walk_mixed": ("Fq", "mixed-safe"), "walk_general": ("Fq", "general"),
-                "suffix": ("Fq", "fold=False")}
+                "suffix": ("Fq", "fold=False"), "suffix_fold": ("Fq", "h MSM"),
+                "emul": ("Fr", "matvec"), "ereduce_wide": ("Fr", "matvec"),
+                "ntt": ("Fr", "forward x3")}
 
 
 def log(msg: str) -> None:
@@ -189,42 +207,56 @@ def bound(mults: int, nbytes: int):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Device time per call (CUDA events around `reps` calls, after a warm-up)."""
+def cuda_ms(fn, reps: int = 20) -> float:
+    """Device time per call of `fn`, whose launches never wait for the card:
+    CUDA events around `reps` calls that the host enqueues behind a spin
+    kernel (torch.cuda._sleep), so the card runs them back to back and the
+    wrappers' host time (ctypes, allocation) stays out of the reading. The
+    spin is lengthened until it outlasts the host's enqueueing."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    cycles = 1 << 24
+    while True:
+        t0 = time.perf_counter()
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        for _ in range(reps):
+            fn()
+        ev[2].record()
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / reps
+        if cycles >= 1 << 34:
+            raise RuntimeError(f"cuda_ms: enqueueing {reps} calls took {host:.1f} ms on the host")
+        cycles *= 4
 
 
-def host_ms(fn) -> float:
-    """Wall time of one call that ends in a device synchronize."""
+def host_ms(fn):
+    """(result, wall ms) of one call that ends in a device synchronize."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    out = fn()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
+    return out, (time.perf_counter() - t0) * 1e3
 
 
-def _record(name, field, mode, K, L, got, want, ms_k, ms_p, mults, nbytes):
+def _record(name, field, mode, shape, got, want, ms_k, ms_p, mults, nbytes):
     import torch
 
     equal = all(torch.equal(g, w) for g, w in zip(got, want))
     err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
               for g, w in zip(got, want))
     bms, by = bound(mults, nbytes)
-    rec = dict(field=field, mode=mode, K=K, lanes=L, equal=equal, max_abs_err=err,
+    rec = dict(field=field, mode=mode, shape=list(shape), equal=equal, max_abs_err=err,
                ms=ms_k, plain_ms=ms_p, bound_ms=bms, bound_by=by)
-    log(f"  {name:6s} {mode:13s} {field:3s} K={K:3d} lanes={L:6d}: bit-equal={equal} "
+    log(f"  {name:12s} {mode:13s} {field:3s} {str(tuple(shape)):18s}: bit-equal={equal} "
         f"kernel {ms_k:.4f} ms, plain {ms_p:.1f} ms, bound {bms:.4f} ms ({by})")
     if not equal:
         raise AssertionError(f"{name} {mode} over {field} differs from its plain version")
@@ -239,7 +271,7 @@ def check_kernels(shapes, dev):
 
     rng = random.Random(SEED)
     nrng = np.random.default_rng(SEED)
-    records = {"walk_mixed": [], "walk_general": [], "suffix": []}
+    records = {"walk_mixed": [], "walk_general": [], "suffix": [], "suffix_fold": []}
     for ext in (False, True):
         pool = Points(ext, rng)
         q, beta = pool.q, pool.beta
@@ -252,14 +284,13 @@ def check_kernels(shapes, dev):
             qd, fd = qrows.to(dev), flags.to(dev)
             out = ms.walk(qd, fd, q, mode, safe, beta)
             torch.cuda.synchronize()
-            ref = ms.walk_plain(qd, fd, q, mode, safe, beta)
+            ref, ms_p = host_ms(lambda: ms.walk_plain(qd, fd, q, mode, safe, beta))
             ms_k = cuda_ms(lambda: ms.walk(qd, fd, q, mode, safe, beta))
-            ms_p = host_ms(lambda: ms.walk_plain(qd, fd, q, mode, safe, beta))
             per_add = MIXED_MULS if mode == "mixed" else GENERAL_MULS
             mults = walk_adds(flags.numpy(), qinf) * per_add * fm
             nbytes = 4 * (qrows.numel() + flags.numel() + sum(t.numel() for t in out))
             label = "general" if mode == "general" else mode + ("-safe" if safe else "-unsafe")
-            rec = _record("walk", fname, label, K, L, out, ref, ms_k, ms_p, mults, nbytes)
+            rec = _record("walk", fname, label, (K, L), out, ref, ms_k, ms_p, mults, nbytes)
             rec["collisions"] = int(out[1].sum())
             records["walk_" + mode].append(rec)
 
@@ -270,13 +301,114 @@ def check_kernels(shapes, dev):
         B = pool.jac[torch.as_tensor(ib)].permute(0, 2, 1).contiguous().to(dev)
         out = ms.suffix(A, B, q, beta)
         torch.cuda.synchronize()
-        ref = ms.suffix_plain(A, B, q, beta)
+        ref, ms_p = host_ms(lambda: ms.suffix_plain(A, B, q, beta))
         ms_k = cuda_ms(lambda: ms.suffix(A, B, q, beta))
-        ms_p = host_ms(lambda: ms.suffix_plain(A, B, q, beta))
         mults = suffix_adds(ia == pool.inf_row, ib == pool.inf_row) * GENERAL_MULS * fm
         nbytes = 4 * (A.numel() + B.numel() + out.numel())
         records["suffix"].append(
-            _record("suffix", fname, "fold=False", Lb, M, (out,), (ref,), ms_k, ms_p, mults, nbytes))
+            _record("suffix", fname, "fold=False", (Lb, M), (out,), (ref,), ms_k, ms_p, mults, nbytes))
+
+        for label, (G, lw, L) in sh["fold"].items():
+            inf = pool.inf_row
+            idx = nrng.integers(0, inf, (2, G * lw))
+            idx[nrng.random((2, G * lw)) < 0.1] = inf
+            out6 = torch.cat([pool.jac[torch.as_tensor(idx[0])], pool.jac[torch.as_tensor(idx[1])]],
+                             1).T.contiguous().to(dev)
+            out = ms.suffix_fold(out6, q, G, lw, L, beta)
+            torch.cuda.synchronize()
+            ref, ms_p = host_ms(lambda: ms.suffix_fold_plain(out6, q, G, lw, L, beta))
+            ms_k = cuda_ms(lambda: ms.suffix_fold(out6, q, G, lw, L, beta))
+            mults = fold_mults(idx[0] == inf, idx[1] == inf, G, lw, L) * fm
+            nbytes = 4 * out6.numel() + 8 * sum(t.numel() for t in out)
+            records["suffix_fold"].append(
+                _record("suffix_fold", fname, label, (G, lw, L), out, ref, ms_k, ms_p, mults, nbytes))
+    return records
+
+
+def fold_mults(ainf: np.ndarray, tinf: np.ndarray, G: int, lw: int, L: int) -> int:
+    """Montgomery products the suffix epilogue computes for these lanes
+    (acc, tot at infinity where ainf, tinf): the ladder's adds and the
+    doublings of acc below base's top bit, the lane add and the tree's
+    adds, an add or a doubling with a point at infinity costing none."""
+    n = 0
+    lane_inf = np.empty(G * lw, bool)
+    for m in range(G * lw):
+        base = (lw - 1 - m % lw) * L
+        res_inf, k = True, 0
+        while base >> k:
+            if (base >> k) & 1:
+                n += GENERAL_MULS * (not res_inf and not ainf[m])
+                res_inf = res_inf and ainf[m]
+            if base >> (k + 1):
+                n += DOUBLE_MULS * (not ainf[m])
+            k += 1
+        n += GENERAL_MULS * (not res_inf and not tinf[m])
+        lane_inf[m] = res_inf and tinf[m]
+    P = lane_inf.reshape(G, lw)
+    while P.shape[1] > 1:
+        s = P.shape[1] // 2
+        n += GENERAL_MULS * int(np.count_nonzero(~P[:, :s] & ~P[:, s:]))
+        P = P[:, :s] & P[:, s:]
+    return n
+
+
+def fr_elems(shape, nrng: np.random.Generator, p: int):
+    """Canonical residues mod p as (..., 16) int64 16-bit limbs: random low
+    limbs and a top limb below p's."""
+    import torch
+
+    x = nrng.integers(0, 1 << 16, tuple(shape) + (16,), dtype=np.int64)
+    x[..., -1] = nrng.integers(0, p >> 240, tuple(shape))
+    return torch.as_tensor(x)
+
+
+def check_field_kernels(fr, dev):
+    """emul, ereduce_wide and the NTT against their plain versions at the
+    h stage's and the corrections' shapes (fr: main_path_shapes' "fr")."""
+    import torch
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.kernels import ntt_pallas as nk
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+    from zokrates_tpu_torch.kernels.ntt import domain_for_curve
+
+    p = P.SCALAR_FIELDS["bn128"].p
+    nrng = np.random.default_rng(SEED + 2)
+    records = {"emul": [], "ereduce_wide": [], "ntt": []}
+    nnz, m, n, N, C = fr["nnz"], fr["m"], fr["n"], fr["N"], fr["C"]
+    # (label, batch, elements, b: "shared" (L, nl), "full" (B, L, nl) or "row" (stride 0))
+    for label, B, L, kind in (("matvec", 1, nnz, "shared"), ("to_mont", 1, m, "row"),
+                              ("A*B", 1, n, "full"), ("corrections", 3, N, "shared")):
+        a = fr_elems((B, L), nrng, p).to(dev)
+        b = {"shared": lambda: fr_elems((L,), nrng, p),
+             "full": lambda: fr_elems((B, L), nrng, p),
+             "row": lambda: fr_elems((), nrng, p).expand(L, 16)}[kind]().to(dev)
+        out = pf.emul(p, a, b)
+        torch.cuda.synchronize()
+        ref, ms_p = host_ms(lambda: pf.emul_plain(p, a, b))
+        ms_k = cuda_ms(lambda: pf.emul(p, a, b))
+        b_elems = {"shared": L, "full": B * L, "row": 1}[kind]
+        nbytes = ELEM_BYTES * (2 * B * L + b_elems)
+        records["emul"].append(_record("emul", "Fr", label, (B, L), (out,), (ref,), ms_k, ms_p,
+                                       B * L, nbytes))
+    for label, B, L in (("matvec", 1, 3 * n), ("corrections", 3, C)):
+        t = torch.as_tensor(nrng.integers(0, 1 << 31, (B, L, 16), dtype=np.int64)).to(dev)
+        out = pf.ereduce_wide(p, t)
+        torch.cuda.synchronize()
+        ref, ms_p = host_ms(lambda: pf.ereduce_wide_plain(p, t))
+        ms_k = cuda_ms(lambda: pf.ereduce_wide(p, t))
+        records["ereduce_wide"].append(_record("ereduce_wide", "Fr", label, (B, L), (out,), (ref,),
+                                               ms_k, ms_p, 2 * B * L, 2 * ELEM_BYTES * B * L))
+    dom = domain_for_curve("bn128", n)
+    for label, B, inverse in (("forward x3", 3, False), ("inverse x3", 3, True), ("inverse x1", 1, True)):
+        x = fr_elems((B, n), nrng, p).to(dev)
+        out = nk.fft_core(dom, x, inverse)
+        torch.cuda.synchronize()
+        ref, ms_p = host_ms(lambda: nk.fft_core_plain(dom, x, inverse))
+        ms_k = cuda_ms(lambda: nk.fft_core(dom, x, inverse))
+        mults = B * (n // 2) * dom.k
+        nbytes = 2 * ELEM_BYTES * B * n + 32 * (n - 1)
+        records["ntt"].append(_record("ntt", "Fr", label, (B, n), (out,), (ref,), ms_k, ms_p,
+                                      mults, nbytes))
     return records
 
 
@@ -348,7 +480,10 @@ def load_sha256():
 
 def main_path_shapes(r1cs, wit):
     """The kernels' shapes in this circuit's prove: G1 at the h MSM (all
-    windows dense), Fq2 at the b2 MSM's device windows for this witness."""
+    windows dense; the epilogue also at the witness G1 MSMs' device
+    windows), Fq2 at the b2 MSM's device windows for this witness, and the
+    scalar field's elementwise kernels and transforms at the h stage's and
+    the corrections' sizes."""
     from zokrates_tpu_torch.fields import params as P
     from zokrates_tpu_torch.fields.limbs import n_limbs
     from zokrates_tpu_torch.kernels.msm_sorted import _plan_shapes, _windows, default_config
@@ -370,9 +505,76 @@ def main_path_shapes(r1cs, wit):
                 "walk_general": (s["cap1"] // cfg.lw2, Wn * cfg.lw2),
                 "suffix": (s["L4"], Wn * cfg.lw2)}
 
+    def fold(Wn, Ks_):  # (G, lw, L) of the epilogue
+        return (Wn, cfg.lw2, _plan_shapes(Ks_, Wn, cfg)["L4"])
+
     g2_W, g2_Ks = (w0, N) if w0 else (w1 - w0, Ks)
-    info = dict(N=N, n=n, W=W, c=cfg.c, M1=cfg.M1, lw2=cfg.lw2, split=(w0, w1, Ks, hw0, hw1))
-    return {"fq": of(W, N), "fq2": of(g2_W, g2_Ks)}, info
+    fq, fq2 = of(W, N), of(g2_W, g2_Ks)
+    fq["fold"] = {"h MSM": fold(W, N), "a/b1/l MSM": fold(3 * g2_W, g2_Ks)}
+    fq2["fold"] = {"b2 MSM": fold(g2_W, g2_Ks)}
+    nnz = sum(len(row) for mat in (r1cs.A, r1cs.B, r1cs.C) for row in mat) + r1cs.num_instance
+    chunk = min(N, 1 << 15)
+    fr = dict(nnz=nnz, m=m, n=n, N=N, C=-(-N // chunk))
+    info = dict(N=N, n=n, W=W, c=cfg.c, M1=cfg.M1, lw2=cfg.lw2, split=(w0, w1, Ks, hw0, hw1), nnz=nnz)
+    return {"fq": fq, "fq2": fq2, "fr": fr}, info
+
+
+class PlainGuard:
+    """While active, counts the calls of jfield's mul and reduce_wide on
+    CUDA tensors made inside groth16._h_stage, groth16._corr_fast or
+    msm_sorted._msm_from_plan. The plain NTT stage loop, the plain suffix
+    epilogue and the plain elementwise ops all come down to these two, so a
+    count of 0 shows that those stages ran on the kernels alone."""
+
+    def __init__(self):
+        from zokrates_tpu_torch.fields import jfield
+        from zokrates_tpu_torch.kernels import msm_sorted
+        from zokrates_tpu_torch.schemes import groth16
+
+        self.depth = 0
+        self.calls = {}
+        self.patches = [(jfield.FieldOps, "mul", self._plain), (jfield.FieldOps, "reduce_wide", self._plain),
+                        (groth16, "_h_stage", self._stage), (groth16, "_corr_fast", self._stage),
+                        (msm_sorted, "_msm_from_plan", self._stage)]
+        self.saved = []
+
+    def _plain(self, name, fn):
+        def wrapped(*args, **kw):
+            import torch
+
+            if self.depth and any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                self.calls[name] = self.calls.get(name, 0) + 1
+            return fn(*args, **kw)
+        return wrapped
+
+    def _stage(self, name, fn):
+        def wrapped(*args, **kw):
+            self.depth += 1
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.depth -= 1
+        return wrapped
+
+    def __enter__(self):
+        for owner, name, wrap in self.patches:
+            fn = getattr(owner, name)
+            self.saved.append((owner, name, fn))
+            setattr(owner, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+def launch_counts():
+    from zokrates_tpu_torch.kernels import msm_sorted, ntt_pallas, pallas_field
+
+    counts = {}
+    for mod in (msm_sorted, pallas_field, ntt_pallas):
+        counts.update(mod.LAUNCHES)
+    return counts
 
 
 def run_main_path(r1cs, wit, dev):
@@ -380,12 +582,13 @@ def run_main_path(r1cs, wit, dev):
     launch counts set to 0 just before setup and read after the proofs."""
     import torch
     from zokrates_tpu_torch.fields import params as P
-    from zokrates_tpu_torch.kernels import msm_sorted as ms
+    from zokrates_tpu_torch.kernels import msm_sorted, ntt_pallas, pallas_field
     from zokrates_tpu_torch.schemes import groth16 as g
 
     p = P.SCALAR_FIELDS["bn128"].p
     rng = random.Random(SEED)
-    ms.LAUNCHES.clear()
+    for mod in (msm_sorted, pallas_field, ntt_pallas):
+        mod.LAUNCHES.clear()
     t0 = time.perf_counter()
     pk, vk = g.setup(r1cs, rng=lambda: rng.randrange(1, p), device=dev)
     torch.cuda.synchronize()
@@ -393,16 +596,21 @@ def run_main_path(r1cs, wit, dev):
         f"{r1cs.num_variables} variables)")
 
     proofs, walls = [], []
-    for i in range(NPROOFS):
-        rs = iter([(SEED + 1000 + 2 * i) % p, (SEED + 2001 + 2 * i) % p])
-        timings = {}
-        t0 = time.perf_counter()
-        proof = g.prove(r1cs, pk, wit, rng=lambda: next(rs), device=dev, timings=timings)
-        walls.append(time.perf_counter() - t0)
-        proofs.append(proof)
-        log(f"  prove {i}: {walls[-1] * 1e3:.1f} ms  "
-            + "  ".join(f"{k}={v * 1e3:.1f}ms" for k, v in timings.items()))
-    launches = dict(ms.LAUNCHES)
+    with PlainGuard() as guard:
+        for i in range(NPROOFS):
+            rs = iter([(SEED + 1000 + 2 * i) % p, (SEED + 2001 + 2 * i) % p])
+            timings = {}
+            t0 = time.perf_counter()
+            proof = g.prove(r1cs, pk, wit, rng=lambda: next(rs), device=dev, timings=timings)
+            walls.append(time.perf_counter() - t0)
+            proofs.append(proof)
+            log(f"  prove {i}: {walls[-1] * 1e3:.1f} ms  "
+                + "  ".join(f"{k}={v * 1e3:.1f}ms" for k, v in timings.items()))
+    launches = launch_counts()
+    log(f"  plain field products / reductions on the card in the h stage, corrections and MSMs: "
+        f"{guard.calls or 0}")
+    if guard.calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors on the main path: {guard.calls}")
 
     for i, proof in enumerate(proofs):
         t0 = time.perf_counter()
@@ -415,6 +623,8 @@ def run_main_path(r1cs, wit, dev):
     for name in REPLACES:
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path: {launches}")
+    if launches["suffix_fold"] != launches["suffix"]:
+        raise AssertionError(f"every suffix launch must be followed by its epilogue: {launches}")
     steady = walls[1:]  # proof 0 carries the one-off uploads
     log(f"  launches over setup and {NPROOFS} proofs: {launches}")
     log(f"  steady state: {len(steady) / sum(steady):.4f} proofs/s "
@@ -441,11 +651,13 @@ def main():
 
     log("== build")
     t0 = time.perf_counter()
-    so, output = cuda.build()
-    log(f"  nvcc: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(so, ROOT)}")
-    for line in output.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log("    " + line.strip())
+    built = cuda.build()
+    log(f"  nvcc, {len(built)} sources in parallel: {time.perf_counter() - t0:.1f} s")
+    for so, output in built.values():
+        log(f"  -> {os.path.relpath(so, ROOT)}")
+        for line in output.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log("    " + line.strip())
     cuda.load()
     t0 = time.perf_counter()
     if not native_available():
@@ -462,6 +674,7 @@ def main():
     log("== kernel checks (kernel vs plain version, bit-equal)")
     t0 = time.perf_counter()
     records = check_kernels(shapes, dev)
+    records.update(check_field_kernels(shapes["fr"], dev))
     check_msm_oracle(dev)
     log(f"  checks: {time.perf_counter() - t0:.1f} s")
 
@@ -471,8 +684,10 @@ def main():
     kernels = []
     for name, recs in records.items():
         head = next(r for r in recs if (r["field"], r["mode"]) == MAIN_VARIANT[name])
+        lib, replaces = REPLACES[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+            "name": name, "route": "cuda", "source": os.path.relpath(cuda.SOURCES[lib], ROOT),
+            "replaces": replaces,
             "launches": launches.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],

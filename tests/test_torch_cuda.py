@@ -1,5 +1,7 @@
-"""The port's CUDA kernels (zokrates_tpu_torch/csrc/msm_sorted.cu) against
-their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (zokrates_tpu_torch/csrc/: msm_sorted.cu's walk,
+suffix and suffix epilogue, field_elementwise.cu's emul and ereduce_wide,
+ntt.cu's transform passes) against their plain PyTorch versions, on the
+card.
 
 Marked `cuda`: every test skips where torch.cuda is unavailable (this is
 decided in a fixture, never at import). On a machine with an NVIDIA GPU
@@ -10,9 +12,11 @@ and nvcc, from the root of a checkout:
 (--noconftest: the repository's conftest imports jax, which the card's
 machine need not have; this file imports nothing of the JAX package.)
 
-Inputs: real curve points from seeded generators, lane counts that are not
-multiples of the kernels' block size. Tolerance: bit equality of every
-output limb.
+Inputs: real curve points from seeded generators (with points at
+infinity), lane counts that are not multiples of the kernels' block size,
+canonical field elements and lazy sums near 2^31 from seeded numpy; the
+NTT at 2^10 (one pass), the prove's 2^15 and 2^16 (two) and 2^21 (three),
+batches of 1 and 3. Tolerance: bit equality of every output limb.
 """
 
 import random
@@ -109,3 +113,97 @@ def test_wrappers_refuse_mixed_devices(dev):
     with pytest.raises(ValueError):
         ms.suffix(torch.zeros((1, 48, 4), dtype=torch.int32, device=dev),
                   torch.zeros((1, 48, 4), dtype=torch.int32), Q)
+
+
+# ---------------------------------------------------------------------------
+# the h stage's kernels and the suffix epilogue
+# ---------------------------------------------------------------------------
+
+R_MOD = g1_group("bn128").r
+
+
+def _elems(shape, seed):
+    """Canonical scalar-field residues as (..., 16) int64 16-bit limbs."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 1 << 16, tuple(shape) + (16,), dtype=np.int64)
+    x[..., -1] = rng.integers(0, R_MOD >> 240, tuple(shape))
+    return torch.as_tensor(x)
+
+
+@pytest.mark.parametrize("kind", ["shared", "full", "row", "strided"])
+def test_emul_kernel_equals_plain(dev, kind):
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+
+    B, L = 3, 1000
+    a = _elems((B, L), 1).to(dev)
+    if kind == "shared":
+        b = _elems((L,), 2).to(dev)
+    elif kind == "full":
+        b = _elems((B, L), 3).to(dev)
+    elif kind == "row":
+        b = _elems((), 4).to(dev).expand(L, 16)
+    else:
+        abc = _elems((B, 3, L), 5).to(dev)
+        a, b = abc[:, 0], abc[:, 2]
+    before = pf.LAUNCHES["emul"]
+    out = pf.emul(R_MOD, a, b)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES["emul"] == before + 1
+    assert torch.equal(out, pf.emul_plain(R_MOD, a, b))
+
+
+def test_ereduce_wide_kernel_equals_plain(dev):
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+
+    rng = np.random.default_rng(6)
+    t = torch.as_tensor(rng.integers((1 << 31) - (1 << 20), 1 << 31, (2, 777, 16), dtype=np.int64))
+    t[0, :5] = (1 << 31) - 1
+    t[1, :5] = 0
+    t = t.to(dev)
+    before = pf.LAUNCHES["ereduce_wide"]
+    out = pf.ereduce_wide(R_MOD, t)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES["ereduce_wide"] == before + 1
+    assert torch.equal(out, pf.ereduce_wide_plain(R_MOD, t))
+
+
+@pytest.mark.parametrize("logn,batch", [(10, 1), (10, 3), (15, 3), (16, 1), (21, 1)])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_ntt_kernel_equals_plain(dev, logn, batch, inverse):
+    from zokrates_tpu_torch.kernels import ntt_pallas as nk
+    from zokrates_tpu_torch.kernels.ntt import domain_for_curve
+
+    dom = domain_for_curve("bn128", 1 << logn)
+    x = _elems((batch, 1 << logn), 7 + logn).to(dev)
+    before = nk.LAUNCHES["ntt"]
+    out = nk.fft_core(dom, x, inverse)
+    torch.cuda.synchronize()
+    assert nk.LAUNCHES["ntt"] == before + len(nk.pass_plan(logn))
+    assert torch.equal(out, nk.fft_core_plain(dom, x, inverse))
+
+
+@pytest.mark.parametrize("lw,W,L", [(8, 5, 3), (128, 4, 1), (128, 2, 2)])
+@pytest.mark.parametrize("ext", [False, True], ids=["Fq", "Fq2"])
+def test_suffix_fold_kernel_equals_plain(dev, ext, lw, W, L):
+    _, jac = _rows(ext, seed=8)
+    rng = np.random.default_rng(9)
+    inf = jac.shape[0] - 1
+    idx = rng.integers(0, jac.shape[0], (2, W * lw))
+    idx[:, : lw // 2] = inf  # window 0: half of its lanes' acc and tot at infinity
+    out6 = torch.cat([jac[torch.as_tensor(idx[0])], jac[torch.as_tensor(idx[1])]], 1).T.contiguous().to(dev)
+    beta = -1 if ext else None
+    before = ms.LAUNCHES["suffix_fold"]
+    got = ms.suffix_fold(out6, Q, W, lw, L, beta)
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["suffix_fold"] == before + 1
+    want = ms.suffix_fold_plain(out6, Q, W, lw, L, beta)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_new_wrappers_refuse_mixed_devices(dev):
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+
+    a = _elems((1, 4), 10).to(dev)
+    with pytest.raises(ValueError):
+        pf.emul(R_MOD, a, _elems((4,), 11))

@@ -1,4 +1,6 @@
-// Montgomery field and Jacobian EC arithmetic for the MSM kernels (sm_90a).
+// Montgomery field and Jacobian EC arithmetic for the kernels of csrc/
+// (sm_90a): the MSM walks and suffix epilogue, the elementwise field
+// kernels and the NTT.
 //
 // Device counterpart of the plain helpers in kernels/pallas_field.py (and
 // of the JAX package's kernels/pallas_field.py _F / _F2 / _general_add /
@@ -18,6 +20,8 @@
 // argument, filled by the Python wrapper from fields/params.py.
 
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -361,6 +365,47 @@ __device__ __forceinline__ void store_jac(int32_t* base, size_t row, size_t L, s
   store(base, row, L, lane, Pt.X);
   store(base, row + ER, L, lane, Pt.Y);
   store(base, row + 2 * ER, L, lane, Pt.Z);
+}
+
+// ---------------------------------------------------------------------------
+// Element-major layout of the plain field ops: one element is 2*NL int64
+// words, each holding a 16-bit limb, least significant first (Fq2: c0's
+// words, then c1's). The words of an element are 16-byte aligned whenever
+// the tensor starts on an element boundary.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ Fq load_wide(const int64_t* src) {
+  const longlong2* v = reinterpret_cast<const longlong2*>(src);
+  Fq a;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const longlong2 w = __ldg(v + i);
+    a.v[i] = (uint32_t)w.x | ((uint32_t)w.y << 16);
+  }
+  return a;
+}
+
+__device__ __forceinline__ void store_wide(int64_t* dst, const Fq& a) {
+  longlong2* v = reinterpret_cast<longlong2*>(dst);
+#pragma unroll
+  for (int i = 0; i < NL; ++i) v[i] = make_longlong2(a.v[i] & 0xFFFFu, a.v[i] >> 16);
+}
+
+__device__ __forceinline__ void store_wide(int64_t* dst, const Fq2& a) {
+  store_wide(dst, a.c0);
+  store_wide(dst + 2 * NL, a.c1);
+}
+
+// Host side: the constants of a FieldParams from little-endian 32-bit limbs.
+inline FieldParams make_params(const uint32_t* p, const uint32_t* one, uint32_t n0, int beta_abs) {
+  FieldParams P;
+  for (int i = 0; i < NL; ++i) {
+    P.p.v[i] = p[i];
+    P.one.v[i] = one[i];
+  }
+  P.n0 = n0;
+  P.beta_abs = beta_abs;
+  return P;
 }
 
 }  // namespace zkt

@@ -3,7 +3,9 @@
 // walk_kernel replaces the JAX package's Pallas walk
 // (zokrates_tpu/kernels/msm_sorted.py: walk_kernel_factory / _walk_call,
 // modes "mixed" and "general"); suffix_kernel replaces its suffix walk
-// (suffix_kernel_factory / _suffix_call, fold=False).
+// (suffix_kernel_factory / _suffix_call, fold=False); suffix_fold_kernel
+// replaces the same kernel's fold=True epilogue (the multiplier ladder and
+// the per-window lane tree), launched after suffix_kernel.
 //
 // What bounds them on an H100: 32-bit integer multiplies. A mixed add is
 // 11 Montgomery products (also 11 when it doubles: 4 before the branch, 7
@@ -26,6 +28,18 @@
 // diverge on it. Memory access is lane-minor ([position][row][lane]), so
 // a warp's loads and stores are contiguous.
 //
+// The fold epilogue is bound by operations too: per lane a ladder of up to
+// log2((lw-1)*L) complete adds and doublings, then lw-1 complete adds per
+// window in the tree, against 2*3*ER words read per lane. Where the TPU
+// kernel ran a rotate-accumulate tree across its (S, 128) tile, one block
+// here holds one window: the ladder runs in registers, one thread per lane
+// (several lanes per thread above 128), and the tree in shared memory
+// (lw * 96 B for Fq, lw * 192 B for Fq2: 12 KB / 24 KB at lw = 128). It
+// follows the plain version's ladder and its pairwise halving tree
+// a[:s] + a[s:2s] exactly, so its window sums equal the plain version's
+// limb for limb; the TPU's rotation tree adds in another order and agrees
+// with both as a group element.
+//
 // Layout (int32 rows of 16-bit Montgomery limbs, as the reference):
 //   walk:   q     (K, IN_ROWS, L)  affine [x|y] (mixed) or Jacobian [X|Y|Z]
 //           flags (K, L)           bit0 flush-after, bit1 skip
@@ -33,6 +47,9 @@
 //           coll  (L,)             1 where the fast mixed add hit P1 == Q
 //   suffix: a, b  (Lb, 3*ER, M)    2-slot dense bucket table, descending
 //           out   (6*ER, M)        [acc | tot]: running sum and sum of sums
+//   fold:   in    (6*ER, G*lw)     the suffix output, lanes of window w at
+//                                  [w*lw, (w+1)*lw)
+//           out   (3, G, ER)       int64 words of 16-bit limbs: X, Y, Z
 // ER = 16 rows per Fq coordinate, 32 per Fq2 coordinate ([c0 | c1]).
 //
 // Interface: plain C functions (ctypes), launched on the caller's stream;
@@ -112,15 +129,77 @@ __global__ void __launch_bounds__(kThreads) suffix_kernel(const int32_t* __restr
   store_jac(out, 3 * ER, Ms, lane, tot);
 }
 
-FieldParams make_params(const uint32_t* p, const uint32_t* one, uint32_t n0, int beta_abs) {
-  FieldParams P;
-  for (int i = 0; i < NL; ++i) {
-    P.p.v[i] = p[i];
-    P.one.v[i] = one[i];
+// The epilogue's point ops, out of line: the kernel calls the add from three
+// places, and inlining the Fq2 add at each multiplies the code that ptxas
+// allocates registers over (and its compile time) for an epilogue that runs
+// once per MSM.
+template <class E>
+__device__ __noinline__ Jac<E> fold_add(const Jac<E>& a, const Jac<E>& b, const FieldParams& P) {
+  return ec_add(a, b, P);
+}
+
+template <class E>
+__device__ __noinline__ Jac<E> fold_double(const Jac<E>& a, const FieldParams& P) {
+  return ec_double(a, P);
+}
+
+// The suffix epilogue (the reference's fold=True branch): one block per
+// window, lane i of the window at thread i (mod blockDim). Each lane
+// computes tot + base*acc with base = (lw-1-i)*L by the plain version's
+// ladder (bit k set: res += tmp; then tmp doubles), in registers; the lw
+// lane sums go to shared memory and a pairwise halving tree adds lane
+// i + s into lane i for s = lw/2, ..., 1. Window w's Jacobian sum is
+// written as int64 16-bit limbs to out[c][w] for c = X, Y, Z.
+template <class E>
+__global__ void __launch_bounds__(kThreads) suffix_fold_kernel(const int32_t* __restrict__ in,
+                                                                int64_t* __restrict__ out, int G,
+                                                                int lw, int L, FieldParams P) {
+  extern __shared__ __align__(16) unsigned char fold_smem[];
+  Jac<E>* lanes = reinterpret_cast<Jac<E>*>(fold_smem);
+  constexpr int ER = Rows<E>::value;
+  const size_t M = (size_t)G * lw;
+  const int w = blockIdx.x;
+  for (int i = threadIdx.x; i < lw; i += blockDim.x) {
+    const size_t lane = (size_t)w * lw + i;
+    Jac<E> acc, tot, res;
+    load_jac(acc, in, 0, M, lane);
+    load_jac(tot, in, 3 * ER, M, lane);
+    set_one(res.X, P);
+    set_one(res.Y, P);
+    set_zero(res.Z);
+    const int base = (lw - 1 - i) * L;
+    // doublings past base's top bit are never added: they are skipped
+    for (int k = 0; (base >> k) != 0; ++k) {
+      if ((base >> k) & 1) res = fold_add(res, acc, P);
+      if ((base >> (k + 1)) != 0) acc = fold_double(acc, P);
+    }
+    lanes[i] = fold_add(tot, res, P);
   }
-  P.n0 = n0;
-  P.beta_abs = beta_abs;
-  return P;
+  for (int s = lw >> 1; s >= 1; s >>= 1) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < s; i += blockDim.x) lanes[i] = fold_add(lanes[i], lanes[i + s], P);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const Jac<E> S = lanes[0];
+    store_wide(out + ((size_t)0 * G + w) * ER, S.X);
+    store_wide(out + ((size_t)1 * G + w) * ER, S.Y);
+    store_wide(out + ((size_t)2 * G + w) * ER, S.Z);
+  }
+}
+
+template <class E>
+int launch_suffix_fold(const int32_t* in, int64_t* out, int G, int lw, int L, const FieldParams& P,
+                       cudaStream_t s) {
+  const size_t smem = (size_t)lw * sizeof(Jac<E>);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(suffix_fold_kernel<E>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int threads = lw < kThreads ? lw : kThreads;
+  suffix_fold_kernel<E><<<G, threads, smem, s>>>(in, out, G, lw, L, P);
+  return (int)cudaGetLastError();
 }
 
 template <class E>
@@ -164,6 +243,17 @@ int zkt_msm_suffix(const int32_t* a, const int32_t* b, int32_t* out, int Lb, int
   else
     suffix_kernel<Fq><<<grid, kThreads, 0, s>>>(a, b, out, Lb, M, P);
   return (int)cudaGetLastError();
+}
+
+// in: the suffix kernel's (6*ER, G*lw) [acc | tot] rows; out: (3, G, ER)
+// int64 window sums. lw is a power of two <= 1024.
+int zkt_msm_suffix_fold(const int32_t* in, int64_t* out, int G, int lw, int L, int ext,
+                        const uint32_t* p, const uint32_t* one, uint32_t n0, int beta_abs,
+                        void* stream) {
+  FieldParams P = make_params(p, one, n0, beta_abs);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (ext) return launch_suffix_fold<Fq2>(in, out, G, lw, L, P, s);
+  return launch_suffix_fold<Fq>(in, out, G, lw, L, P, s);
 }
 
 const char* zkt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

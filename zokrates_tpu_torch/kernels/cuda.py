@@ -1,10 +1,14 @@
-"""Build and bind the CUDA kernels in csrc/ (nvcc into a shared library with
+"""Build and bind the CUDA kernels in csrc/ (nvcc into shared libraries with
 a plain C interface, loaded with ctypes).
 
-The library builds at first use — never at import — into
-zokrates_tpu_torch/_build/ (see buildtools.py) for sm_90a. Only a machine
-with the CUDA toolkit builds it; nvcc is looked up as $CUDA_HOME/bin/nvcc,
-then on PATH, then at /usr/local/cuda/bin/nvcc.
+Each source builds into a library of its own, all nvcc processes started
+together, so the build takes as long as the slowest source (msm_sorted.cu,
+with its Fq2 instantiations) rather than their sum; nvcc also spreads each
+source's optimization over the CPUs (-split-compile). The libraries build at
+first use — never at import — into zokrates_tpu_torch/_build/ (see
+buildtools.py) for sm_90a. Only a machine with the CUDA toolkit builds
+them; nvcc is looked up as $CUDA_HOME/bin/nvcc, then on PATH, then at
+/usr/local/cuda/bin/nvcc.
 """
 
 from __future__ import annotations
@@ -12,18 +16,25 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
-from typing import Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
+from typing import Dict, Optional, Tuple
 
 from ..buildtools import PKG_DIR, build_shared
 from ..fields.jfield import field_spec
 
 CSRC = os.path.join(PKG_DIR, "csrc")
-SOURCES = [os.path.join(CSRC, "msm_sorted.cu")]
+# library name -> source; each includes field.cuh
+SOURCES = {
+    "zkt_msm": os.path.join(CSRC, "msm_sorted.cu"),
+    "zkt_field": os.path.join(CSRC, "field_elementwise.cu"),
+    "zkt_ntt": os.path.join(CSRC, "ntt.cu"),
+}
 HEADERS = [os.path.join(CSRC, "field.cuh")]
 ARCH = "arch=compute_90a,code=sm_90a"
 NL32 = 8  # 32-bit limbs per element the kernels are instantiated for
 
-_LIB: Optional[ctypes.CDLL] = None
+_LIB: Optional[SimpleNamespace] = None
 
 
 def nvcc_path() -> str:
@@ -39,33 +50,59 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-def build() -> Tuple[str, str]:
-    """Compile the kernel library if it is not built yet. Returns (path,
-    compiler output incl. ptxas register/spill report; empty if cached)."""
+def build() -> Dict[str, Tuple[str, str]]:
+    """Compile the kernel libraries not built yet, one nvcc per source, in
+    parallel. Returns {library: (path, compiler output incl. the ptxas
+    register/spill report; empty if cached)}."""
+    # -split-compile=0: nvcc runs its optimizations on as many threads as
+    # there are CPUs (msm_sorted.cu: 81 s against 136 s without, on the
+    # card's 8-core machine)
     cmd = [
-        nvcc_path(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
+        nvcc_path(), "-gencode", ARCH, "-std=c++17", "-O3", "-split-compile=0", "-shared",
         "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", CSRC,
     ]
-    return build_shared("zkt_msm", cmd, SOURCES, HEADERS)
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        futs = {name: pool.submit(build_shared, name, cmd, [src], HEADERS)
+                for name, src in SOURCES.items()}
+        return {name: f.result() for name, f in futs.items()}
 
 
-def load() -> ctypes.CDLL:
-    """Build (first call) and load the kernel library."""
+def load() -> SimpleNamespace:
+    """Build (first call) and load the kernel libraries; returns their C
+    functions as attributes of one object."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    so, _ = build()
-    lib = ctypes.CDLL(so)
-    P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    libs = {name: ctypes.CDLL(so) for name, (so, _) in build().items()}
+    P, I, U, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_longlong
     L = ctypes.POINTER(ctypes.c_uint32)
-    lib.zkt_msm_walk.argtypes = [P, P, P, P, I, I, I, I, I, L, L, U, I, P]
-    lib.zkt_msm_walk.restype = I
-    lib.zkt_msm_suffix.argtypes = [P, P, P, I, I, I, L, L, U, I, P]
-    lib.zkt_msm_suffix.restype = I
-    lib.zkt_error_string.argtypes = [I]
-    lib.zkt_error_string.restype = ctypes.c_char_p
-    _LIB = lib
-    return lib
+    sigs = {
+        "zkt_msm": {
+            "zkt_msm_walk": [P, P, P, P, I, I, I, I, I, L, L, U, I, P],
+            "zkt_msm_suffix": [P, P, P, I, I, I, L, L, U, I, P],
+            "zkt_msm_suffix_fold": [P, P, I, I, I, I, L, L, U, I, P],
+        },
+        "zkt_field": {
+            "zkt_emul": [P, P, P, LL, LL, LL, LL, LL, L, L, U, P],
+            "zkt_ereduce_wide": [P, P, LL, L, L, L, U, P],
+        },
+        "zkt_ntt": {
+            "zkt_ntt_pass": [P, P, P, P, I, I, I, I, I, L, L, U, P],
+        },
+    }
+    fns = SimpleNamespace()
+    for name, table in sigs.items():
+        for fn, argtypes in table.items():
+            f = getattr(libs[name], fn)
+            f.argtypes = argtypes
+            f.restype = I
+            setattr(fns, fn, f)
+    err = libs["zkt_msm"].zkt_error_string
+    err.argtypes = [I]
+    err.restype = ctypes.c_char_p
+    fns.zkt_error_string = err
+    _LIB = fns
+    return fns
 
 
 _PARAMS = {}
@@ -80,13 +117,16 @@ def field_params(p: int, beta) -> Tuple[object, object, int, int]:
         spec = field_spec(p)
         if spec.nl != 2 * NL32:
             raise ValueError(
-                f"the CUDA MSM kernels take {2 * NL32} x 16-bit-limb fields, got nl={spec.nl}"
+                f"the CUDA kernels take {2 * NL32} x 16-bit-limb fields, got nl={spec.nl}"
             )
-        arr = ctypes.c_uint32 * NL32
-        limbs = lambda x: arr(*[(x >> (32 * i)) & 0xFFFFFFFF for i in range(NL32)])
         n0 = (-pow(p, -1, 1 << 32)) % (1 << 32)
-        _PARAMS[key] = (limbs(p), limbs(spec.r), n0, 0 if beta is None else -beta)
+        _PARAMS[key] = (limbs32(p), limbs32(spec.r), n0, 0 if beta is None else -beta)
     return _PARAMS[key]
+
+
+def limbs32(x: int):
+    """x < 2^256 as NL32 little-endian 32-bit limbs (a ctypes array)."""
+    return (ctypes.c_uint32 * NL32)(*[(x >> (32 * i)) & 0xFFFFFFFF for i in range(NL32)])
 
 
 def check(rc: int, what: str) -> None:

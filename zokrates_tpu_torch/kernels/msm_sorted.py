@@ -1,9 +1,9 @@
 """Sort-based Pippenger MSM: plans in PyTorch, bucket walks in CUDA.
 
-The counterpart of the JAX package's kernels/msm_sorted.py (its XLA-suffix
-configuration, fold=False). Per window: signed c-bit digits, a stable
-sort of the point indices by |digit|, a gather of the affine points into
-sorted order, then
+The counterpart of the JAX package's kernels/msm_sorted.py in its hardware
+configuration (the suffix kernel with its fold=True epilogue). Per window:
+signed c-bit digits, a stable sort of the point indices by |digit|, a
+gather of the affine points into sorted order, then
 
   * the accumulation walk: lane m owns sorted positions [m*K, (m+1)*K)
     and adds them into a running Jacobian sum, flushing a partial-sum
@@ -13,16 +13,17 @@ sorted order, then
     adds until every bucket holds at most 2 records (a provable bound),
     then scattered into a 2-slot dense table,
   * the suffix walk folds the table into per-lane running sums and sums
-    of running sums; the weighted combine and the per-window lane tree
-    (_suffix_post) run as plain PyTorch,
+    of running sums; the suffix epilogue (the reference's fold=True
+    branch) combines each lane's pair with its static weight and sums the
+    lanes of each window,
   * the W window sums are combined on the host (native/zkt_native.c).
 
-The walk and suffix passes are the CUDA kernels of csrc/msm_sorted.cu
-(walk, suffix); beside each is its plain PyTorch version (walk_plain,
-suffix_plain), which the wrapper runs only for tensors on the CPU.
-Several point sets that share a plan (Groth16's a/b1/l queries) go
-through one plan as a leading query axis, and all windows of all
-queries share each kernel launch.
+The walk, suffix and epilogue passes are the CUDA kernels of
+csrc/msm_sorted.cu (walk, suffix, suffix_fold); beside each is its plain
+PyTorch version (walk_plain, suffix_plain, suffix_fold_plain), which the
+wrapper runs only for tensors on the CPU. Several point sets that share a
+plan (Groth16's a/b1/l queries) go through one plan as a leading query
+axis, and all windows of all queries share each kernel launch.
 
 Safety: the accumulation walk may use the doubling-free mixed add, which
 raises a collision flag if a bucket's partial sum ever equals the
@@ -165,7 +166,7 @@ def suffix_plain(a, b, p: int, beta=None):
         B = tuple(_coords(b[t], en, nl, beta))
         acc = _general_add(F, acc, _general_add(F, A, B))
         tot = _general_add(F, tot, acc)
-    return _rows(acc + tot, M)
+    return _rows(acc + tot, M).contiguous()
 
 
 def _check(name, t, shape, device):
@@ -256,11 +257,11 @@ def suffix(a, b, p: int, beta=None):
     return out
 
 
-def _suffix_post(p: int, W: int, lw: int, L: int, out6, beta=None):
-    """Per-lane weighted combine (tot + base*acc with the static per-lane
-    multiplier base = (lw-1-(lane%lw))*L) followed by the lw-lane tree
-    reduction per window. Returns Jacobian (W, en) int64 limb tensors in
-    the kernel's row layout ([c0|c1] per Fq2 coordinate)."""
+def suffix_fold_plain(out6, p: int, W: int, lw: int, L: int, beta=None):
+    """Plain version of the suffix epilogue kernel: the per-lane weighted
+    combine (tot + base*acc with the static per-lane multiplier base =
+    (lw-1-(lane%lw))*L) by a double-and-add ladder, then the lw-lane
+    pairwise tree per window. Same arguments and result as suffix_fold()."""
     from .jec import CurveOps
 
     ops = CurveOps(field_for(p, beta))
@@ -285,6 +286,44 @@ def _suffix_post(p: int, W: int, lw: int, L: int, out6, beta=None):
         s //= 2
         Pt = ops.add(tuple(a[:, :s] for a in Pt), tuple(a[:, s : 2 * s] for a in Pt))
     return tuple(a.reshape(W, en) for a in Pt)
+
+
+def suffix_fold(out6, p: int, W: int, lw: int, L: int, beta=None):
+    """Suffix epilogue (CUDA kernel suffix_fold_kernel, the reference's
+    fold=True branch of the suffix kernel).
+
+    out6: (6*en, W*lw) int32 [acc | tot] rows of the suffix walk, lanes
+    [w*lw, (w+1)*lw) of window w, each lane covering L buckets; lw a power
+    of two <= 1024. Returns window w's sum sum_i (tot_i + base_i*acc_i),
+    base_i = (lw-1-i)*L, as Jacobian (W, en) int64 limb tensors X, Y, Z
+    ([c0|c1] per Fq2 coordinate). CPU tensors take suffix_fold_plain; CUDA
+    tensors launch the kernel."""
+    beta = None if beta is None else small_beta(p, beta)
+    en = _rows_per_coord(p, beta)
+    if lw < 1 or lw > 1024 or lw & (lw - 1):
+        raise ValueError(f"suffix_fold: lw must be a power of two <= 1024, got {lw}")
+    if L < 1:
+        raise ValueError(f"suffix_fold: L must be positive, got {L}")
+    _check("out6", out6, (6 * en, W * lw), out6.device)
+    if out6.device.type == "cpu":
+        return suffix_fold_plain(out6, p, W, lw, L, beta)
+    if out6.device.type != "cuda":
+        raise ValueError(f"suffix_fold: unsupported device {out6.device}")
+    from . import cuda
+
+    lib = cuda.load()
+    pl, one, n0, babs = cuda.field_params(p, beta)
+    out = torch.empty((3, W, en), dtype=torch.int64, device=out6.device)
+    if W == 0:
+        return out[0], out[1], out[2]
+    with torch.cuda.device(out6.device):
+        rc = lib.zkt_msm_suffix_fold(
+            out6.data_ptr(), out.data_ptr(), W, lw, L, int(beta is not None), pl, one, n0, babs,
+            torch.cuda.current_stream(out6.device).cuda_stream,
+        )
+    cuda.check(rc, "suffix_fold")
+    LAUNCHES["suffix_fold"] += 1
+    return out[0], out[1], out[2]
 
 
 # ---------------------------------------------------------------------------
@@ -499,7 +538,7 @@ def _msm_from_plan(p: int, W: int, cfg: MSMConfig, P128: torch.Tensor, plan, saf
     B = _to_walk(table[G * hb :].reshape(G, hb, 3 * en), lw2, L4)
     out6 = suffix(A, B, p, beta)
     mark("suffix")
-    wX, wY, wZ = _suffix_post(p, G, lw2, L4, out6, beta)
+    wX, wY, wZ = suffix_fold(out6, p, G, lw2, L4, beta)
     mark("suffix_post")
     return tuple(t.reshape(Q, W, en) for t in (wX, wY, wZ)), coll.max()
 

@@ -1,13 +1,14 @@
 """Radix-2 number-theoretic transform over prime scalar fields.
 
-The counterpart of the JAX package's kernels/ntt.py, stage-by-stage form:
-iterative Cooley-Tukey, decimation in time after a bit-reversal
-permutation. Each of the log2(n) stages is one batched butterfly over the
-whole (..., n, nl) limb tensor — twiddles are precomputed per stage on the
-host (Montgomery form) and broadcast, so a stage is one field mul plus one
-add and one sub over n/2 lanes. Coset transforms (for the Groth16
-h(X) = (A·B - C)/Z on a coset of the vanishing domain) multiply by host
-tables of coset powers before / after.
+The counterpart of the JAX package's kernels/ntt.py: iterative
+Cooley-Tukey, decimation in time after a bit-reversal permutation, with
+twiddles precomputed per stage on the host (Montgomery form). The
+transform itself is kernels/ntt_pallas.fft_core (the whole-transform CUDA
+kernel, or on the CPU its plain version, one batched butterfly per stage).
+Coset transforms (for the Groth16 h(X) = (A·B - C)/Z on a coset of the
+vanishing domain) and the ifft's 1/n multiply by host tables of coset
+powers and by the n^-1 row through the elementwise product
+(kernels/pallas_field.emul).
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import torch
 from ..fields import params as P
 from ..fields.jfield import field_ops
 from ..fields.limbs import LIMB_BITS, ints_to_limbs
+from .ntt_pallas import fft_core
+from .pallas_field import emul
 
 
 class Domain:
@@ -85,26 +88,20 @@ class Domain:
 
     # -- transforms --------------------------------------------------------
     def _fft_core(self, x: torch.Tensor, inverse: bool) -> torch.Tensor:
-        """x: (..., n, nl) Montgomery limbs -> transformed, natural order."""
-        f = self.ops
-        n = self.n
-        lead = x.shape[:-2]
-        tw = self._twiddles(inverse, x.device)
-        rev = self._on("rev", x.device, lambda: torch.as_tensor(self.bitrev, device=x.device))
-        x = x.index_select(-2, rev)
-        for s in range(self.k):
-            m = 1 << (s + 1)
-            half = m // 2
-            xv = x.reshape(lead + (n // m, m, -1))
-            even = xv[..., :half, :]
-            odd = xv[..., half:, :]
-            t = f.mul(odd, tw[s])
-            x = torch.cat([f.add(even, t), f.sub(even, t)], dim=-2).reshape(lead + (n, -1))
-        return x
+        """x: (..., n, nl) Montgomery limbs -> transformed, natural order.
+
+        Every size takes the pass kernel (ntt_pallas.fft_core). The
+        reference keeps its whole-transform Pallas NTT to 2^15, the VMEM it
+        holds, and takes a four-step path above; the pass kernel has no
+        such bound (one more launch per 10 stages)."""
+        return fft_core(self, x.contiguous(), inverse)
 
     def _mul_table(self, x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-        """Elementwise multiply of (..., n, nl) by a shared (n, nl) table."""
-        return self.ops.mul(x, rows)
+        """Elementwise multiply of (..., n, nl) by a shared (n, nl) table, or
+        by one (nl,) row for every element (read with a row stride of 0)."""
+        xb = x.contiguous().reshape(-1, self.n, self.ops.nl)
+        out = emul(self.p, xb, rows.expand(self.n, self.ops.nl))
+        return out.reshape(x.shape)
 
     def fft(self, coeffs: torch.Tensor) -> torch.Tensor:
         """Coefficients -> evaluations on the domain (both Montgomery)."""

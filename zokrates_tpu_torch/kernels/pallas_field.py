@@ -12,12 +12,26 @@ CUDA kernels and their plain versions agree bit for bit.
 
 Every formula is generic over a field object with mul/add/sub/select/
 is_zero/zero_like/one_like (all curves here have a = 0).
+
+Beside them, the counterparts of the reference's elementwise field
+kernels: emul (its _emul_call / emul) and ereduce_wide (its _ereduce_call
+/ ereduce_wide), CUDA kernels in csrc/field_elementwise.cu, each with its
+plain version (emul_plain, ereduce_wide_plain: jfield's mul and
+reduce_wide), which the wrapper runs only for tensors on the CPU.
 """
 
 from __future__ import annotations
 
-from ..fields.jfield import field_ops
+from collections import Counter
+
+import torch
+
+from ..fields.jfield import field_ops, field_spec
 from ..fields.jfield2 import field_ops2
+
+# launches of each CUDA kernel, counted by its wrapper (plain-version runs
+# on CPU tensors are not launches)
+LAUNCHES: Counter = Counter()
 
 
 def field_for(p: int, beta=None):
@@ -123,3 +137,115 @@ def _mixed_add_inline(F, cur, Qx, Qy, with_double: bool = True):
     Y3 = F.select(p_inf, Qy, Y3)
     Z3 = F.select(p_inf, F.one_like(Z3), Z3)
     return X3, Y3, Z3, is_double
+
+
+# ---------------------------------------------------------------------------
+# Elementwise field kernels: plain versions and wrappers
+# ---------------------------------------------------------------------------
+
+
+def emul_plain(p: int, a, b):
+    """Plain version of the emul kernel (jfield's mul; a (L, nl) b
+    broadcasts over the batch). Same arguments and result as emul()."""
+    return field_ops(p).mul(a, b)
+
+
+def ereduce_wide_plain(p: int, t):
+    """Plain version of the ereduce_wide kernel (jfield's reduce_wide).
+    Same arguments and result as ereduce_wide()."""
+    return field_ops(p).reduce_wide(t)
+
+
+def _check_elems(name, t, nl: int, ndims):
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.int64:
+        raise TypeError(f"{name}: expected an int64 tensor, got {getattr(t, 'dtype', type(t))}")
+    if t.dim() not in ndims or t.shape[-1] != nl:
+        raise ValueError(f"{name}: expected {' or '.join(f'{d}-d' for d in ndims)} (..., {nl}) limbs, "
+                         f"got {tuple(t.shape)}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: limbs must be contiguous")
+
+
+def _check_aligned(name, t, batch_stride: int):
+    """The kernels read an element's words as 16-byte vectors."""
+    if t.data_ptr() % 16 or batch_stride % 2:
+        raise ValueError(f"{name}: elements must start on 16-byte boundaries")
+
+
+def emul(p: int, a, b):
+    """Elementwise Montgomery product a*b*R^-1 mod p (CUDA kernel
+    emul_kernel, the reference's emul).
+
+    a: (B, L, nl) int64 16-bit limbs with packed rows (any batch stride, so
+    a[:, i] of a larger array is taken in place); b: (L, nl), shared by the
+    batch, or (B, L, nl), with packed rows or one row for all (row stride 0:
+    a constant expanded to (L, nl) is never copied). Canonical inputs give
+    the canonical product, as a new (B, L, nl) tensor. CPU tensors take
+    emul_plain; CUDA tensors launch the kernel."""
+    nl = field_spec(p).nl
+    _check_elems("a", a, nl, (3,))
+    _check_elems("b", b, nl, (2, 3))
+    B, L, _ = a.shape
+    if b.shape[-2] != L or (b.dim() == 3 and b.shape[0] != B):
+        raise ValueError(f"b: shape {tuple(b.shape)} does not match a's {tuple(a.shape)}")
+    if b.device != a.device:
+        raise ValueError(f"b: on {b.device}, expected {a.device}")
+    if L > 1 and a.stride(1) != nl:
+        raise ValueError("a: rows must be packed")
+    if L > 1 and b.stride(-2) not in (0, nl):
+        raise ValueError("b: rows must be packed or all one row (stride 0)")
+    if a.device.type == "cpu":
+        return emul_plain(p, a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"emul: unsupported device {a.device}")
+    from . import cuda
+
+    a_bs = a.stride(0) if B > 1 else 0
+    b_bs = b.stride(0) if b.dim() == 3 and B > 1 else 0
+    b_rs = b.stride(-2) if L > 1 else nl
+    _check_aligned("a", a, a_bs)
+    _check_aligned("b", b, b_bs)
+    lib = cuda.load()
+    pl, one, n0, _ = cuda.field_params(p, None)
+    out = torch.empty((B, L, nl), dtype=torch.int64, device=a.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(a.device):
+        rc = lib.zkt_emul(a.data_ptr(), b.data_ptr(), out.data_ptr(), B, L, a_bs, b_bs, b_rs,
+                          pl, one, n0, torch.cuda.current_stream(a.device).cuda_stream)
+    cuda.check(rc, "emul")
+    LAUNCHES["emul"] += 1
+    return out
+
+
+def ereduce_wide(p: int, t):
+    """Lazy column sums -> the sum mod p, canonical (CUDA kernel
+    ereduce_kernel, the reference's ereduce_wide).
+
+    t: (B, L, nl) int64 contiguous, each word a nonnegative column sum below
+    2^47 (the plain version's range) of 16-bit-limb residues. Returns a new
+    (B, L, nl) tensor. CPU tensors take ereduce_wide_plain; CUDA tensors
+    launch the kernel."""
+    spec = field_spec(p)
+    _check_elems("t", t, spec.nl, (3,))
+    if not t.is_contiguous():
+        raise ValueError("t: must be contiguous")
+    if t.device.type == "cpu":
+        return ereduce_wide_plain(p, t)
+    if t.device.type != "cuda":
+        raise ValueError(f"ereduce_wide: unsupported device {t.device}")
+    from . import cuda
+
+    _check_aligned("t", t, 0)
+    lib = cuda.load()
+    pl, one, n0, _ = cuda.field_params(p, None)
+    out = torch.empty_like(t)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(t.device):
+        rc = lib.zkt_ereduce_wide(t.data_ptr(), out.data_ptr(), t.numel() // spec.nl,
+                                  cuda.limbs32(spec.r2), pl, one, n0,
+                                  torch.cuda.current_stream(t.device).cuda_stream)
+    cuda.check(rc, "ereduce_wide")
+    LAUNCHES["ereduce_wide"] += 1
+    return out

@@ -1,7 +1,8 @@
-"""Groth16 setup / prove / verify on PyTorch, with the MSM walks in CUDA.
+"""Groth16 setup / prove / verify on PyTorch, with the prover's kernels in
+CUDA.
 
 The counterpart of the JAX package's schemes/groth16.py, in its sorted-MSM
-configuration with the XLA suffix epilogue:
+configuration on hardware:
 
   * setup evaluates the QAP at tau on the host (sparse integer sums) and
     produces every pk/vk group element with the batched fixed-base MSM
@@ -10,11 +11,12 @@ configuration with the XLA suffix epilogue:
     bit-equal to the JAX package's pk for the same randomness,
   * proving evaluates A·z / B·z / C·z as COO sparse matvecs
     (ir/r1cs_device.py), computes h(X) = (A·B - C)/Z with coset NTTs
-    (kernels/ntt.py), and runs the four witness MSMs and the h MSM through
-    the sorted MSM (kernels/msm_sorted.py: plans in PyTorch, bucket walks
-    and suffix in CUDA); the windows a witness barely touches, and the
-    window combine and the A/B/C randomization, run in the native C host
-    library (native/),
+    (kernels/ntt.py), its elementwise products and lazy-sum reductions in
+    the kernels of kernels/pallas_field.py, and runs the four witness MSMs
+    and the h MSM through the sorted MSM (kernels/msm_sorted.py: plans in
+    PyTorch, bucket walks, suffix and its epilogue in CUDA); the windows a
+    witness barely touches, and the window combine and the A/B/C
+    randomization, run in the native C host library (native/),
   * verification uses the host pairing-product oracle (ec/pairing.py).
 
 Proof/VK JSON is byte-compatible with the reference's {a,b,c} /
@@ -42,6 +44,7 @@ from ..ir.r1cs import R1CS
 from ..ir.r1cs_device import R1CSDevice
 from ..ir.witness import Witness
 from ..kernels.ntt import domain_for_curve
+from ..kernels.pallas_field import emul, ereduce_wide
 from .types import (
     Proof,
     VerificationKey,
@@ -325,32 +328,50 @@ def setup(r1cs: R1CS, rng=None, device="cuda") -> Tuple[ProvingKey, "Verificatio
 # ---------------------------------------------------------------------------
 
 
+_ROWS: Dict = {}
+
+
+def _row(p: int, value: int, device) -> torch.Tensor:
+    """The (nl,) 16-bit limbs of a host integer in [0, p), cached per
+    device: R^2 (to Montgomery form), 1 (from it), Montgomery constants."""
+    key = (p, value, torch.device(device))
+    t = _ROWS.get(key)
+    if t is None:
+        t = _ROWS[key] = torch.as_tensor(int_to_limbs(value, n_limbs(p)).astype(np.int64), device=device)
+    return t
+
+
 def _h_stage(curve: str, dev: R1CSDevice, Z: torch.Tensor) -> torch.Tensor:
     """z (B, m, nl) canonical limbs -> h(X) coefficients (B, n, nl)
     canonical: to_mont, one fused 3-matrix matvec, QAP coset-NTT division,
-    from_mont. All 3B transforms of a stage run as one batched op."""
+    from_mont. All 3B transforms of a stage run as one batched op. The
+    elementwise products (to_mont and from_mont among them, as products by
+    the R^2 and 1 rows), the lazy-sum reduction and the transforms go
+    through the kernels emul, ereduce_wide and (in Domain) fft_core, as the
+    reference goes through its Pallas kernels on a TPU; sub stays plain."""
     p = P.SCALAR_FIELDS[curve].p
     f = field_ops(p)
     n = dev.n
     dom = domain_for_curve(curve, n)
     g = P.SCALAR_FIELDS[curve].smallest_nonresidue
-    zinv = f.encode_scalar(pow((pow(g, n, p) - 1) % p, -1, p), device=Z.device)
+    zinv_mont = pow((pow(g, n, p) - 1) % p, -1, p) * f.spec.r % p
 
-    B = Z.shape[0]
-    Z_mont = f.to_mont(Z.to(torch.int64))
+    Z = Z.to(torch.int64)
+    B, m, nl = Z.shape
+    Z_mont = emul(p, Z, _row(p, f.spec.r2, Z.device).expand(m, nl))
     # one fused 3-matrix matvec: rows offset into disjoint blocks [0, n),
     # [n, 2n), [2n, 3n), so one gather, one product and one index_add_
     rows = torch.cat([dev.A.rows, dev.B.rows + n, dev.C.rows + 2 * n])
     cols = torch.cat([dev.A.cols, dev.B.cols, dev.C.cols])
     coeff = torch.cat([dev.A.coeff, dev.B.coeff, dev.C.coeff])
-    vals = f.mul(Z_mont[:, cols], coeff)
-    sums = torch.zeros((B, 3 * n, f.nl), dtype=torch.int64, device=Z.device)
+    vals = emul(p, Z_mont[:, cols], coeff)
+    sums = torch.zeros((B, 3 * n, nl), dtype=torch.int64, device=Z.device)
     sums.index_add_(1, rows, vals)
-    abc_e = f.reduce_wide(sums).reshape(B * 3, n, f.nl)
-    abc_cs = dom.coset_fft(dom.ifft(abc_e), g).reshape(B, 3, n, f.nl)
-    ab = f.mul(abc_cs[:, 0], abc_cs[:, 1])
-    h_cs = f.mul(f.sub(ab, abc_cs[:, 2]), zinv)
-    return f.from_mont(dom.coset_ifft(h_cs, g))
+    abc_e = ereduce_wide(p, sums).reshape(B * 3, n, nl)
+    abc_cs = dom.coset_fft(dom.ifft(abc_e), g).reshape(B, 3, n, nl)
+    ab = emul(p, abc_cs[:, 0], abc_cs[:, 1])
+    h_cs = emul(p, f.sub(ab, abc_cs[:, 2]), _row(p, zinv_mont, Z.device).expand(n, nl))
+    return emul(p, dom.coset_ifft(h_cs, g), _row(p, 1, Z.device).expand(n, nl))
 
 
 def compute_h(r1cs: R1CS, z: Sequence[int], n: int, device="cuda") -> List[int]:
@@ -522,11 +543,14 @@ class _Stages:
 def _corr_fast(f, corr_w, z_pad, C: int, chunk: int):
     """Dummy-correction weights · witness dot products (3 rows), canonical.
     Lazy limb sums over chunks of <= 2^15 products keep the reference's
-    u32 headroom."""
-    zm = f.to_mont(z_pad)
-    prod = f.mul(corr_w, zm[None].expand(corr_w.shape))
-    s1 = f.reduce_wide(prod.reshape(3, C, chunk, -1).sum(2))
-    return f.from_mont(f.reduce_wide(s1.sum(1)))
+    u32 headroom. The products and reductions go through emul and
+    ereduce_wide, as the reference's TPU branch does."""
+    p, nl = f.p, f.nl
+    zm = emul(p, z_pad[None], _row(p, f.spec.r2, z_pad.device).expand(z_pad.shape[0], nl))[0]
+    prod = emul(p, corr_w, zm)
+    s1 = ereduce_wide(p, prod.reshape(3, C, chunk, nl).sum(2))
+    s = ereduce_wide(p, s1.sum(1)[None])
+    return emul(p, s, _row(p, 1, z_pad.device).expand(3, nl))[0]
 
 
 def _prove_device(curve, dev, pkd, z_pad, N, n, W, cfg, w0, w1, Ks, mark):
