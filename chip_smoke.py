@@ -14,18 +14,30 @@ Phases, each timed:
      PyTorch version on the card, at the prove's shapes, from seeded
      inputs (real curve points; doubling, cancellation and infinity cases
      included): the walk in modes mixed-unsafe, mixed-safe and general,
-     the suffix walk and its epilogue (suffix_fold), each over Fq and Fq2;
-     emul, ereduce_wide and the NTT over the scalar field — outputs must
-     be bit-equal; then a full sorted MSM on the card against the
+     the suffix walk and its epilogue (suffix_fold), each over Fq and Fq2,
+     over G1 also at the shared-bucket h MSM's shapes; emul, ereduce_wide,
+     the NTT and the matvec walk mulacc_walk (B = 1 and 16, the sha256
+     walk layout and its flush pattern) over the scalar field — outputs
+     must be bit-equal; then a full sorted MSM on the card against the
      Python-int oracle (G1 and G2)
   4. main path: the sha256 circuit (bench_artifacts/sha256.out, 27,459
      constraints, domain 2^15) and its witness through the port's readers,
-     setup with a seeded rng, 3 proofs with distinct fixed r, s, each
-     verified by the host pairing check; every kernel's launch count
-     over setup and proofs must be above 0, and no plain field product or
-     reduction may run on the card inside the h stage, the corrections or
-     the MSMs
-  5. the kernels JSON line, the nvidia-smi line, and the result line.
+     setup with a seeded rng (with the shared-bucket h query h16_p128),
+     the h MSM of one proof's h scalars in both forms (shared-bucket and
+     dense per window: equal as group elements, each timed), 3 proofs
+     with distinct fixed r, s, each verified by the host pairing check;
+     every kernel's launch count over setup and proofs must be above 0
+     (mulacc_walk at least once a proof), and no plain field product,
+     reduction, matvec walk or COO matvec may run on the card inside the
+     h stage, the corrections or the MSMs
+  5. batched path, as bench.py measures: 16 distinct sha256 witnesses made
+     by the port's interpreter (preimage [16b, ..., 16b + 15]), one
+     warm-up prove_batch and 2 timed ones; every proof of the last batch
+     verifies, proofs 0 and 1 equal prove() of the same witness with the
+     same r, s byte for byte, the launch counts (set to 0 before the
+     first batch) are above 0, and no plain version runs on the card;
+     one more batch under torch.profiler gives the card's busy time
+  6. the kernels JSON line, the nvidia-smi line, and the result line.
 
 Exits non-zero on any failure; with no CUDA device it raises before
 printing a result.
@@ -46,6 +58,7 @@ coordinate).
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import random
@@ -65,6 +78,8 @@ DOUBLE_MULS = 7                # Montgomery products per doubling
 ELEM_BYTES = 128               # one field element as 16 int64 words
 SEED = 2024                    # inputs of the checks, setup randomness, r and s
 NPROOFS = 3
+BATCH = 16                     # witnesses per prove_batch, as bench.py
+NBATCHES = 2                   # timed batches after the warm-up
 # kernel -> (its library, a key of kernels/cuda.SOURCES; the TPU kernel it replaces)
 REPLACES = {
     "walk_mixed": ("zkt_msm", "zokrates_tpu/kernels/msm_sorted.py:140"),
@@ -74,15 +89,16 @@ REPLACES = {
     "emul": ("zkt_field", "zokrates_tpu/kernels/pallas_field.py:676"),
     "ereduce_wide": ("zkt_field", "zokrates_tpu/kernels/pallas_field.py:751"),
     "ntt": ("zkt_ntt", "zokrates_tpu/kernels/ntt_pallas.py:40"),
+    "mulacc_walk": ("zkt_mulacc", "zokrates_tpu/kernels/pallas_field.py:808"),
 }
 # the variant whose time stands for each kernel in the kernels line: the
-# one the main path launches most or on the most data (G1, safe walks, the
-# suffix and epilogue of the h MSM, the matvec's product and reduction, the
-# batch of 3 forward transforms)
-MAIN_VARIANT = {"walk_mixed": ("Fq", "mixed-safe"), "walk_general": ("Fq", "general"),
-                "suffix": ("Fq", "fold=False"), "suffix_fold": ("Fq", "h MSM"),
+# one the main path launches on the most data (G1, the walks, suffix and
+# epilogue of the shared-bucket h MSM, the matvec's product and reduction
+# (COO shape), the batch of 3 forward transforms, the batched matvec walk)
+MAIN_VARIANT = {"walk_mixed": ("Fq", "mixed-safe h16"), "walk_general": ("Fq", "general h16"),
+                "suffix": ("Fq", "fold=False h16"), "suffix_fold": ("Fq", "h16 MSM"),
                 "emul": ("Fr", "matvec"), "ereduce_wide": ("Fr", "matvec"),
-                "ntt": ("Fr", "forward x3")}
+                "ntt": ("Fr", "forward x3"), "mulacc_walk": ("Fr", "B=16")}
 
 
 def log(msg: str) -> None:
@@ -278,8 +294,12 @@ def check_kernels(shapes, dev):
         fname = "Fq2" if ext else "Fq"
         fm = FQ2_MULS if ext else 1
         sh = shapes["fq2" if ext else "fq"]
-        for mode, safe in (("mixed", False), ("mixed", True), ("general", True)):
-            K, L = sh["walk_" + mode]
+        variants = [(mode, safe, "", sh) for mode, safe in
+                    (("mixed", False), ("mixed", True), ("general", True))]
+        if "h16" in sh:  # the shared-bucket h MSM's walks (safe, as the prove)
+            variants += [("mixed", True, " h16", sh["h16"]), ("general", True, " h16", sh["h16"])]
+        for mode, safe, tag, shp in variants:
+            K, L = shp["walk_" + mode]
             qrows, flags, qinf = walk_inputs(pool, K, L, mode, nrng)
             qd, fd = qrows.to(dev), flags.to(dev)
             out = ms.walk(qd, fd, q, mode, safe, beta)
@@ -289,24 +309,25 @@ def check_kernels(shapes, dev):
             per_add = MIXED_MULS if mode == "mixed" else GENERAL_MULS
             mults = walk_adds(flags.numpy(), qinf) * per_add * fm
             nbytes = 4 * (qrows.numel() + flags.numel() + sum(t.numel() for t in out))
-            label = "general" if mode == "general" else mode + ("-safe" if safe else "-unsafe")
+            label = ("general" if mode == "general" else mode + ("-safe" if safe else "-unsafe")) + tag
             rec = _record("walk", fname, label, (K, L), out, ref, ms_k, ms_p, mults, nbytes)
             rec["collisions"] = int(out[1].sum())
             records["walk_" + mode].append(rec)
 
-        Lb, M = sh["suffix"]
-        ia = nrng.integers(0, pool.jac.shape[0], (Lb, M))
-        ib = nrng.integers(0, pool.jac.shape[0], (Lb, M))
-        A = pool.jac[torch.as_tensor(ia)].permute(0, 2, 1).contiguous().to(dev)
-        B = pool.jac[torch.as_tensor(ib)].permute(0, 2, 1).contiguous().to(dev)
-        out = ms.suffix(A, B, q, beta)
-        torch.cuda.synchronize()
-        ref, ms_p = host_ms(lambda: ms.suffix_plain(A, B, q, beta))
-        ms_k = cuda_ms(lambda: ms.suffix(A, B, q, beta))
-        mults = suffix_adds(ia == pool.inf_row, ib == pool.inf_row) * GENERAL_MULS * fm
-        nbytes = 4 * (A.numel() + B.numel() + out.numel())
-        records["suffix"].append(
-            _record("suffix", fname, "fold=False", (Lb, M), (out,), (ref,), ms_k, ms_p, mults, nbytes))
+        for tag, shp in [("", sh)] + ([(" h16", sh["h16"])] if "h16" in sh else []):
+            Lb, M = shp["suffix"]
+            ia = nrng.integers(0, pool.jac.shape[0], (Lb, M))
+            ib = nrng.integers(0, pool.jac.shape[0], (Lb, M))
+            A = pool.jac[torch.as_tensor(ia)].permute(0, 2, 1).contiguous().to(dev)
+            B = pool.jac[torch.as_tensor(ib)].permute(0, 2, 1).contiguous().to(dev)
+            out = ms.suffix(A, B, q, beta)
+            torch.cuda.synchronize()
+            ref, ms_p = host_ms(lambda: ms.suffix_plain(A, B, q, beta))
+            ms_k = cuda_ms(lambda: ms.suffix(A, B, q, beta))
+            mults = suffix_adds(ia == pool.inf_row, ib == pool.inf_row) * GENERAL_MULS * fm
+            nbytes = 4 * (A.numel() + B.numel() + out.numel())
+            records["suffix"].append(_record("suffix", fname, "fold=False" + tag, (Lb, M), (out,), (ref,),
+                                             ms_k, ms_p, mults, nbytes))
 
         for label, (G, lw, L) in sh["fold"].items():
             inf = pool.inf_row
@@ -412,6 +433,35 @@ def check_field_kernels(fr, dev):
     return records
 
 
+def check_mulacc(walk, dev):
+    """mulacc_walk against its plain version at the main path's shapes: the
+    sha256 walk layout (K records on 1024 lanes) and its flush flags, at
+    B = 1 (prove) and B = 16 (prove_batch), with seeded canonical z and
+    coefficients. Bound: every record is one product; bytes are z and the
+    output per proof and record, the coefficients and flags once."""
+    import torch
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+
+    p = P.SCALAR_FIELDS["bn128"].p
+    nrng = np.random.default_rng(SEED + 3)
+    K, M = walk.K, walk.M
+    coeff = fr_elems((K, M), nrng, p).permute(0, 2, 1).contiguous().to(dev)
+    flags = walk.flags_walk
+    records = []
+    for B in (1, BATCH):
+        z = fr_elems((B, K, M), nrng, p).permute(0, 1, 3, 2).contiguous().to(dev)
+        out = pf.mulacc_walk(p, z, coeff, flags)
+        torch.cuda.synchronize()
+        ref, ms_p = host_ms(lambda: pf.mulacc_walk_plain(p, z, coeff, flags))
+        ms_k = cuda_ms(lambda: pf.mulacc_walk(p, z, coeff, flags))
+        nbytes = ELEM_BYTES * (2 * B * K * M + K * M) + 4 * K * M
+        records.append(_record("mulacc_walk", "Fr", f"B={B}", (B, K, 16, M), (out,), (ref,), ms_k, ms_p,
+                               B * K * M, nbytes))
+        del z, out, ref
+    return {"mulacc_walk": records}
+
+
 def check_msm_oracle(dev, N: int = 8192):
     """Full sorted MSM on the card (plans, walks, merges, suffix, host
     combine) against the Python-int oracle: points k_i*G, so the MSM is
@@ -475,18 +525,40 @@ def load_sha256():
     r1cs = r1cs_from_prog(prog)
     with open(os.path.join(art, "sha256.witness"), "rb") as f:
         wit = Witness.read(f, FIELDS["bn128"])
-    return r1cs, wit
+    return prog, r1cs, wit
+
+
+def batch_witnesses(prog):
+    """BATCH distinct sha256 witnesses as bench.py makes them: preimage
+    [16b, ..., 16b + 15] through the ABI and the port's interpreter, each
+    written in the binary witness format and read back."""
+    from zokrates_tpu_torch.abi import encode_inputs
+    from zokrates_tpu_torch.fields.field import FIELDS
+    from zokrates_tpu_torch.interp.interpreter import Interpreter
+    from zokrates_tpu_torch.ir.witness import Witness
+
+    with open(os.path.join(ROOT, "bench_artifacts", "sha256.abi.json")) as f:
+        abi = json.load(f)
+    out = []
+    for b in range(BATCH):
+        flat = encode_inputs([[[b * 16 + j for j in range(16)]]], abi["inputs"], FIELDS["bn128"].P)
+        buf = io.BytesIO()
+        Interpreter().execute(prog, flat).write(buf, FIELDS["bn128"])
+        out.append(Witness.read(io.BytesIO(buf.getvalue()), FIELDS["bn128"]))
+    return out
 
 
 def main_path_shapes(r1cs, wit):
-    """The kernels' shapes in this circuit's prove: G1 at the h MSM (all
-    windows dense; the epilogue also at the witness G1 MSMs' device
-    windows), Fq2 at the b2 MSM's device windows for this witness, and the
-    scalar field's elementwise kernels and transforms at the h stage's and
-    the corrections' sizes."""
+    """The kernels' shapes in this circuit's prove: G1 at the h MSM, both in
+    the shared-bucket form the prove takes (one window of Wc*N slots,
+    "h16") and dense over all windows (the epilogue also at the witness G1
+    MSMs' device windows), Fq2 at the b2 MSM's device windows for this
+    witness, and the scalar field's elementwise kernels and transforms at
+    the h stage's and the corrections' sizes."""
     from zokrates_tpu_torch.fields import params as P
     from zokrates_tpu_torch.fields.limbs import n_limbs
-    from zokrates_tpu_torch.kernels.msm_sorted import _plan_shapes, _windows, default_config
+    from zokrates_tpu_torch.kernels.msm_sorted import (_plan_shapes, _windows, default_config,
+                                                       shared_window_count)
     from zokrates_tpu_torch.native import available
     from zokrates_tpu_torch.schemes import groth16 as g
 
@@ -497,20 +569,23 @@ def main_path_shapes(r1cs, wit):
     cfg = default_config(N)
     W = _windows(p, cfg.c)
     z = g._witness_limbs(r1cs, wit, p, n_limbs(p))
-    w0, w1, Ks, hw0, hw1 = g._split_with_host(g._window_nnz(z, W, cfg.c), W, cfg, N, available())
+    w0, w1, Ks, hw0, hw1 = g._split_with_host(g._window_nnz_batch([z], W, cfg.c), W, cfg, N, available())
 
-    def of(Wn, Ks_):
-        s = _plan_shapes(Ks_, Wn, cfg)
-        return {"walk_mixed": (s["K1"], Wn * cfg.M1),
-                "walk_general": (s["cap1"] // cfg.lw2, Wn * cfg.lw2),
-                "suffix": (s["L4"], Wn * cfg.lw2)}
+    def of(Wn, Ks_, c=cfg):
+        s = _plan_shapes(Ks_, Wn, c)
+        return {"walk_mixed": (s["K1"], Wn * c.M1),
+                "walk_general": (s["cap1"] // c.lw2, Wn * c.lw2),
+                "suffix": (s["L4"], Wn * c.lw2)}
 
-    def fold(Wn, Ks_):  # (G, lw, L) of the epilogue
-        return (Wn, cfg.lw2, _plan_shapes(Ks_, Wn, cfg)["L4"])
+    def fold(Wn, Ks_, c=cfg):  # (G, lw, L) of the epilogue
+        return (Wn, c.lw2, _plan_shapes(Ks_, Wn, c)["L4"])
 
     g2_W, g2_Ks = (w0, N) if w0 else (w1 - w0, Ks)
     fq, fq2 = of(W, N), of(g2_W, g2_Ks)
-    fq["fold"] = {"h MSM": fold(W, N), "a/b1/l MSM": fold(3 * g2_W, g2_Ks)}
+    cfgH, Wc = g._shared_h_cfg(cfg), shared_window_count(p, 16)
+    fq["h16"] = of(1, Wc * N, cfgH)
+    fq["fold"] = {"h16 MSM": fold(1, Wc * N, cfgH), "h MSM": fold(W, N),
+                  "a/b1/l MSM": fold(3 * g2_W, g2_Ks)}
     fq2["fold"] = {"b2 MSM": fold(g2_W, g2_Ks)}
     nnz = sum(len(row) for mat in (r1cs.A, r1cs.B, r1cs.C) for row in mat) + r1cs.num_instance
     chunk = min(N, 1 << 15)
@@ -520,20 +595,23 @@ def main_path_shapes(r1cs, wit):
 
 
 class PlainGuard:
-    """While active, counts the calls of jfield's mul and reduce_wide on
-    CUDA tensors made inside groth16._h_stage, groth16._corr_fast or
-    msm_sorted._msm_from_plan. The plain NTT stage loop, the plain suffix
-    epilogue and the plain elementwise ops all come down to these two, so a
-    count of 0 shows that those stages ran on the kernels alone."""
+    """While active, counts the calls of jfield's mul and reduce_wide, of
+    mulacc_walk_plain and of the COO matvec on CUDA tensors made inside
+    groth16._h_stage, groth16._corr_fast or msm_sorted._msm_from_plan. The
+    plain NTT stage loop, the plain suffix epilogue and the plain
+    elementwise ops all come down to the first two, so a count of 0 shows
+    that those stages ran on the kernels alone, and that the h stage took
+    the mulacc walk."""
 
     def __init__(self):
         from zokrates_tpu_torch.fields import jfield
-        from zokrates_tpu_torch.kernels import msm_sorted
+        from zokrates_tpu_torch.kernels import msm_sorted, pallas_field
         from zokrates_tpu_torch.schemes import groth16
 
         self.depth = 0
         self.calls = {}
         self.patches = [(jfield.FieldOps, "mul", self._plain), (jfield.FieldOps, "reduce_wide", self._plain),
+                        (pallas_field, "mulacc_walk_plain", self._plain), (groth16, "_matvec_coo", self._plain),
                         (groth16, "_h_stage", self._stage), (groth16, "_corr_fast", self._stage),
                         (msm_sorted, "_msm_from_plan", self._stage)]
         self.saved = []
@@ -620,16 +698,166 @@ def run_main_path(r1cs, wit, dev):
             raise AssertionError(f"proof {i} failed to verify")
     if len({json.dumps(pr.points, sort_keys=True) for pr in proofs}) != len(proofs):
         raise AssertionError("proofs with distinct r, s are not distinct")
-    for name in REPLACES:
-        if launches.get(name, 0) <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path: {launches}")
-    if launches["suffix_fold"] != launches["suffix"]:
-        raise AssertionError(f"every suffix launch must be followed by its epilogue: {launches}")
+    check_launches(launches, NPROOFS, "the main path")
     steady = walls[1:]  # proof 0 carries the one-off uploads
     log(f"  launches over setup and {NPROOFS} proofs: {launches}")
     log(f"  steady state: {len(steady) / sum(steady):.4f} proofs/s "
         f"({sum(steady) / len(steady) * 1e3:.1f} ms/proof over proofs 1..{len(walls) - 1})")
+    return launches, pk, vk
+
+
+def check_launches(launches, runs: int, path: str):
+    """Every kernel launched; the matvec walk at least once a prove call;
+    each suffix launch followed by its epilogue."""
+    for name in REPLACES:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched on {path}: {launches}")
+    if launches["mulacc_walk"] < runs:
+        raise AssertionError(f"mulacc_walk launched {launches['mulacc_walk']} times in {runs} prove calls")
+    if launches["suffix_fold"] != launches["suffix"]:
+        raise AssertionError(f"every suffix launch must be followed by its epilogue: {launches}")
+
+
+def compare_h_msm(r1cs, wit, pk, dev):
+    """The h MSM of one proof's h scalars in the shared-bucket form the
+    prove takes (c = 16, one window over the pk's h16 rows) and dense per
+    window (c = 8 over the h rows): equal after the host combine, as affine
+    points. Each is timed with the host clock around plan + MSM, ending in
+    a synchronize (the second of two runs), with its stage split."""
+    import torch
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.kernels import msm_sorted as ms
+    from zokrates_tpu_torch.schemes import groth16 as g
+
+    p, q = P.SCALAR_FIELDS["bn128"].p, P.BASE_FIELDS["bn128"].p
+    m, n = r1cs.num_variables, pk.domain_size
+    N = g._hw_fused_tier(m, n)
+    cfg = ms.default_config(N)
+    W, Wc, cfgH = ms._windows(p, cfg.c), ms.shared_window_count(p, 16), g._shared_h_cfg(cfg)
+    if not g._use_h16(pk, p, N, dev):
+        raise AssertionError(f"the pk carries no shared-bucket h query at the prover's tier N = {N}")
+    z = g._witness_limbs(r1cs, wit, p, 16)
+    Z = torch.as_tensor(np.pad(z, ((0, N - m), (0, 0))).astype(np.int64), device=dev)[None]
+    h = g._h_stage("bn128", g._r1cs_device(r1cs, n, dev), Z)[0]
+    h_pad = torch.nn.functional.pad(h[: n - 1], (0, 0, 0, N - (n - 1)))
+    pkd = pk.dev(dev, N, m)
+    def h16(mark):
+        plan = ms._msm_plan_shared(Wc, N, cfgH, h_pad)
+        mark("plans")
+        return ms._msm_from_plan(q, 1, cfgH, pkd["h16"], plan, True, mark=mark)[0]
+
+    def dense(mark):
+        plan = ms._msm_plan(W, N, cfg, h_pad)
+        mark("plans")
+        return ms._msm_from_plan(q, W, cfg, pkd["h"], plan, True, mark=mark)[0]
+
+    res = {}
+    for name, fn, Wn, c in (("h16", h16, 1, 16), ("dense", dense, W, cfg.c)):
+        fn(lambda label: None)
+        stages = {}
+        out, wall = host_ms(lambda: fn(g._Stages(stages, dev)))
+        jx, jy, jz = ms.combine_windows(q, p, tuple(a[0].cpu().numpy() for a in out), Wn, c)
+        zi = pow(jz, -1, q)
+        res[name] = ((jx * zi * zi % q, jy * zi ** 3 % q), wall, stages)
+        log(f"  h MSM {name:5s} ({Wn} window{'s' if Wn > 1 else ''}, c={c}): {wall:.2f} ms  "
+            + "  ".join(f"{k}={v * 1e3:.2f}ms" for k, v in stages.items()))
+    equal = res["h16"][0] == res["dense"][0]
+    log(f"  h MSM shared-bucket == dense as affine points: {equal}")
+    if not equal:
+        raise AssertionError("the shared-bucket h MSM disagrees with the dense h MSM")
+    return {k: v[1] for k, v in res.items()}
+
+
+def run_batch_path(r1cs, pk, vk, wits, dev, smi):
+    """prove_batch as bench.py runs it: one warm-up batch, NBATCHES timed
+    ones, with the launch counts set to 0 just before the first and read
+    after the last; every proof of the last batch verifies, and proofs 0
+    and 1 equal prove() of the same witness with the same r, s."""
+    import torch
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.kernels import msm_sorted, ntt_pallas, pallas_field
+    from zokrates_tpu_torch.schemes import groth16 as g
+
+    p = P.SCALAR_FIELDS["bn128"].p
+
+    def rs(i):  # r0, s0, r1, s1, ... of batch i
+        return [(SEED + 10000 * (i + 1) + j) % p for j in range(2 * len(wits))]
+
+    for mod in (msm_sorted, pallas_field, ntt_pallas):
+        mod.LAUNCHES.clear()
+    walls, splits = [], []
+    with PlainGuard() as guard:
+        for i in range(1 + NBATCHES):
+            draws = iter(rs(i))
+            timings = {}
+            t0 = time.perf_counter()
+            proofs = g.prove_batch(r1cs, pk, wits, rng=lambda: next(draws), device=dev, timings=timings)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            splits.append(timings)
+            log(f"  prove_batch {i} (B={len(wits)}): {walls[-1] * 1e3:.1f} ms  "
+                + "  ".join(f"{k}={v * 1e3:.1f}ms" for k, v in timings.items()))
+    launches = launch_counts()
+    log(f"  plain versions on the card in the batched h stage, corrections and MSMs: {guard.calls or 0}")
+    if guard.calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors on the batched path: {guard.calls}")
+    check_launches(launches, 1 + NBATCHES, "the batched path")
+    log(f"  launches over {1 + NBATCHES} batches: {launches}")
+
+    t0 = time.perf_counter()
+    bad = [b for b, pr in enumerate(proofs) if not g.verify(vk, pr)]
+    log(f"  verify the last batch's {len(proofs)} proofs: {len(proofs) - len(bad)} verify "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if bad:
+        raise AssertionError(f"batch proofs {bad} failed to verify")
+    if len({json.dumps(pr.points, sort_keys=True) for pr in proofs}) != len(proofs):
+        raise AssertionError("batch proofs with distinct witnesses and r, s are not distinct")
+    last = rs(NBATCHES)
+    for b in (0, 1):
+        draws = iter(last[2 * b : 2 * b + 2])
+        single = g.prove(r1cs, pk, wits[b], rng=lambda: next(draws), device=dev)
+        same = json.dumps(single.to_json()) == json.dumps(proofs[b].to_json())
+        log(f"  batch proof {b} == prove() with the same witness, r, s (JSON bytes): {same}")
+        if not same:
+            raise AssertionError(f"batch proof {b} differs from prove()")
+
+    timed = walls[1:]
+    ms_batch = sum(timed) / len(timed) * 1e3
+    split = {k: sum(t.get(k, 0.0) for t in splits[1:]) / len(timed) * 1e3 for k in splits[-1]}
+    log(f"  B={len(wits)} sha256 prove_batch: {len(wits) * len(timed) / sum(timed):.4f} proofs/s, "
+        f"{ms_batch:.1f} ms/batch (mean of batches 1..{NBATCHES}; {smi}): "
+        + "  ".join(f"{k}={v:.1f}ms" for k, v in split.items()))
+    profile_batch(r1cs, pk, wits, dev, rs(NBATCHES + 1))
     return launches
+
+
+def profile_batch(r1cs, pk, wits, dev, rs):
+    """One more prove_batch (after the launch counts were read) under
+    torch.profiler: the card's busy time, the sum of the device time of
+    its kernels and copies, against the batch's wall time under the
+    profiler, and the kernels that take most of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from zokrates_tpu_torch.schemes import groth16 as g
+
+    draws = iter(rs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        g.prove_batch(r1cs, pk, wits, rng=lambda: next(draws), device=dev)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_ev) / 1e3
+    if busy <= 0:
+        log(f"  profiled prove_batch: {wall:.1f} ms wall; device busy time not measured "
+            "(the profiler recorded no device events)")
+        return
+    log(f"  profiled prove_batch: {wall:.1f} ms wall, device busy {busy:.1f} ms "
+        f"(idle share {1 - busy / wall:.3f}); top device time:")
+    for e in sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
 def main():
@@ -638,8 +866,10 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
     sys.path.insert(0, ROOT)
+    from zokrates_tpu_torch.ir.r1cs_device import build_mulacc_walk
     from zokrates_tpu_torch.kernels import cuda
     from zokrates_tpu_torch.native import available as native_available
+    from zokrates_tpu_torch.schemes import groth16 as g
 
     dev = torch.device("cuda")
     t_all = time.perf_counter()
@@ -666,20 +896,32 @@ def main():
 
     log("== load sha256")
     t0 = time.perf_counter()
-    r1cs, wit = load_sha256()
+    prog, r1cs, wit = load_sha256()
     shapes, info = main_path_shapes(r1cs, wit)
+    walk = build_mulacc_walk(g._r1cs_device(r1cs, info["n"], dev))
     log(f"  {r1cs.num_constraints} constraints, {r1cs.num_variables} variables "
-        f"({time.perf_counter() - t0:.1f} s); MSM {info}")
+        f"({time.perf_counter() - t0:.1f} s); MSM {info}; matvec walk K={walk.K} x M={walk.M} lanes, "
+        f"{walk.pos.numel()} flush slots")
 
     log("== kernel checks (kernel vs plain version, bit-equal)")
     t0 = time.perf_counter()
     records = check_kernels(shapes, dev)
     records.update(check_field_kernels(shapes["fr"], dev))
+    records.update(check_mulacc(walk, dev))
     check_msm_oracle(dev)
     log(f"  checks: {time.perf_counter() - t0:.1f} s")
 
     log("== main path: setup, prove, verify (sha256, 2^15)")
-    launches = run_main_path(r1cs, wit, dev)
+    launches, pk, vk = run_main_path(r1cs, wit, dev)
+
+    log("== h MSM: shared-bucket (the prove's) vs dense, same h scalars")
+    compare_h_msm(r1cs, wit, pk, dev)
+
+    log(f"== batched path: prove_batch, B={BATCH} distinct sha256 witnesses")
+    t0 = time.perf_counter()
+    wits = batch_witnesses(prog)
+    log(f"  {len(wits)} witnesses by the port's interpreter: {time.perf_counter() - t0:.1f} s")
+    launches_batch = run_batch_path(r1cs, pk, vk, wits, dev, smi)
 
     kernels = []
     for name, recs in records.items():
@@ -689,6 +931,7 @@ def main():
             "name": name, "route": "cuda", "source": os.path.relpath(cuda.SOURCES[lib], ROOT),
             "replaces": replaces,
             "launches": launches.get(name, 0),
+            "launches_batch": launches_batch.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None,

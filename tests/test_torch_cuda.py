@@ -1,7 +1,8 @@
 """The port's CUDA kernels (zokrates_tpu_torch/csrc/: msm_sorted.cu's walk,
 suffix and suffix epilogue, field_elementwise.cu's emul and ereduce_wide,
-ntt.cu's transform passes) against their plain PyTorch versions, on the
-card.
+ntt.cu's transform passes, mulacc.cu's matvec walk) against their plain
+PyTorch versions, on the card; and the shared-bucket sorted MSM on the
+card against the Python-int oracle.
 
 Marked `cuda`: every test skips where torch.cuda is unavailable (this is
 decided in a fixture, never at import). On a machine with an NVIDIA GPU
@@ -16,7 +17,9 @@ Inputs: real curve points from seeded generators (with points at
 infinity), lane counts that are not multiples of the kernels' block size,
 canonical field elements and lazy sums near 2^31 from seeded numpy; the
 NTT at 2^10 (one pass), the prove's 2^15 and 2^16 (two) and 2^21 (three),
-batches of 1 and 3. Tolerance: bit equality of every output limb.
+batches of 1 and 3; the epilogue also at the shared-bucket h MSM's shape
+(one window of 1024 lanes); the matvec walk with runs that end at row
+changes and at lane ends. Tolerance: bit equality of every output limb.
 """
 
 import random
@@ -182,7 +185,7 @@ def test_ntt_kernel_equals_plain(dev, logn, batch, inverse):
     assert torch.equal(out, nk.fft_core_plain(dom, x, inverse))
 
 
-@pytest.mark.parametrize("lw,W,L", [(8, 5, 3), (128, 4, 1), (128, 2, 2)])
+@pytest.mark.parametrize("lw,W,L", [(8, 5, 3), (128, 4, 1), (128, 2, 2), (1024, 1, 32)])
 @pytest.mark.parametrize("ext", [False, True], ids=["Fq", "Fq2"])
 def test_suffix_fold_kernel_equals_plain(dev, ext, lw, W, L):
     _, jac = _rows(ext, seed=8)
@@ -207,3 +210,46 @@ def test_new_wrappers_refuse_mixed_devices(dev):
     a = _elems((1, 4), 10).to(dev)
     with pytest.raises(ValueError):
         pf.emul(R_MOD, a, _elems((4,), 11))
+
+
+@pytest.mark.parametrize("B,K,M", [(1, 12, 1024), (3, 9, 200)])
+def test_mulacc_walk_kernel_equals_plain(dev, B, K, M):
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+
+    rng = np.random.default_rng(12)
+    z = _elems((B, K, M), 13).permute(0, 1, 3, 2).contiguous().to(dev)
+    coeff = _elems((K, M), 14).permute(0, 2, 1).contiguous().to(dev)
+    flags = rng.random((K, M)) < 0.3
+    flags[-1] = True  # every lane flushes at its end
+    flags = torch.as_tensor(flags.astype(np.int32)).to(dev)
+    before = pf.LAUNCHES["mulacc_walk"]
+    out = pf.mulacc_walk(R_MOD, z, coeff, flags)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES["mulacc_walk"] == before + 1
+    assert torch.equal(out, pf.mulacc_walk_plain(R_MOD, z, coeff, flags))
+
+
+def test_shared_bucket_msm_on_card(dev):
+    """The shared-bucket h MSM on the card as the prove runs it (c = 16, one
+    window of Wc*N slots, lw2 = 1024) at N = 4096, against the oracle:
+    points k_i*G from the fixed-base MSM, their shifted copies from
+    groth16._h16_p128, so the MSM is (sum k_i s_i)*G."""
+    from zokrates_tpu_torch.fields.limbs import ints_to_limbs
+    from zokrates_tpu_torch.schemes import groth16 as g
+
+    rng = random.Random(15)
+    N = 4096
+    ks = [rng.randrange(1, R_MOD) for _ in range(N)]
+    sc = [rng.randrange(R_MOD) for _ in range(N)]
+    rows, _ = g._fb_g1("bn128", ks, dev)
+    h16 = torch.as_tensor(g._h16_p128("bn128", rows, N, dev).astype(np.int32)).to(dev)
+    cfg = g._shared_h_cfg(ms.default_config(N))
+    Wc = ms.shared_window_count(R_MOD, 16)
+    S = torch.as_tensor(ints_to_limbs(sc, 16).astype(np.int64)).to(dev)
+    before = ms.LAUNCHES["walk_mixed"]
+    out, _ = ms._msm_from_plan(Q, 1, cfg, h16[None], ms._msm_plan_shared(Wc, N, cfg, S), True)
+    assert ms.LAUNCHES["walk_mixed"] == before + 1
+    jx, jy, jz = ms.combine_windows(Q, R_MOD, tuple(a[0].cpu().numpy() for a in out), 1, 16, native=False)
+    want = g1_group("bn128").generator() * (sum(k * s for k, s in zip(ks, sc)) % R_MOD)
+    zi = pow(jz, -1, Q)
+    assert (jx * zi * zi % Q, jy * zi ** 3 % Q) == (want.x, want.y)

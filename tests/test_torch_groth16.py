@@ -7,6 +7,11 @@ with zokrates_tpu.lang.
   * prove: given the JAX proving key through convert.py and the same fixed
     r, s, the port's proof JSON equals the JAX proof JSON byte for byte,
     and the JAX verify accepts it (native host tail and Python tail);
+  * prove_batch draws r, s per proof in turn, and its proofs equal the JAX
+    proof and the port's prove() byte for byte;
+  * the shared-bucket h query (groth16._h16_p128) holds 2^(16w) * h_j in
+    row w*Nh + j (sampled rows against the Python-int oracle), and
+    convert.proving_key carries it;
   * the h stage equals groth16.compute_h;
   * the port's readers and witness limbs equal the JAX package's.
 
@@ -135,6 +140,67 @@ def test_prove_matches_reference(circuit, jax_keys, port_pk, jax_proof, tail, mo
     assert jg.verify(jax_keys[1], JProof.from_json(proof.to_json()))
 
 
+@pytest.fixture(scope="module")
+def witness2():
+    """A second witness of the same circuit (x0 = 5)."""
+    prog = compile_source(SRC, curve=CURVE).prog
+    return TWitness(Interpreter().execute(prog, [5, 7]).values)
+
+
+def test_prove_batch_matches_prove(circuit, jax_keys, port_pk, jax_proof, witness2):
+    """A batch of two distinct witnesses, r and s drawn in turn (5, 6, then
+    RS): proof 1 equals the JAX proof of the same witness and r, s byte for
+    byte (and so the port's prove(), test_prove_matches_reference), and
+    proof 0 verifies."""
+    _, _, port_r1cs, port_wit = circuit
+    proofs = tg.prove_batch(port_r1cs, port_pk, [witness2, port_wit], rng=_fixed((5, 6) + RS), device="cpu")
+    assert json.dumps(proofs[1].to_json()) == json.dumps(jax_proof.to_json())
+    assert proofs[0].inputs != proofs[1].inputs
+    from zokrates_tpu.schemes.types import Proof as JProof
+
+    assert jg.verify(jax_keys[1], JProof.from_json(proofs[0].to_json()))
+
+
+def test_h16_rows_match_oracle(port_keys, jax_keys):
+    """Rows w*Nh + j of the shared-bucket h query hold 2^(16w) * h_j (the
+    Python-int oracle, zokrates_tpu.ec), the rows past the h query the
+    packed point at infinity of a zero scalar; convert carries the array."""
+    from zokrates_tpu.ec.curve import PointG1 as JPointG1, g1_group as j_g1_group
+
+    pk = port_keys[0]
+    grp = j_g1_group(CURVE)
+    q = grp.q
+    k, Nh = pk.h_p128.shape[0], 64
+    h16 = tg._h16_p128(CURVE, pk.h_p128, Nh, "cpu")
+    Wc = 16
+    assert h16.shape == (Wc * Nh, 128) and h16.dtype == np.uint32
+    rinv = pow(1 << 256, -1, q)
+
+    def coord(row, i):
+        return sum(int(v) << (16 * t) for t, v in enumerate(row[16 * i : 16 * (i + 1)])) * rinv % q
+
+    rng = random.Random(4)
+    for w, j in [(0, 0), (1, 0), (Wc - 1, k - 1)] + [(rng.randrange(Wc), rng.randrange(k)) for _ in range(5)]:
+        h = JPointG1(grp, coord(pk.h_p128[j], 0), coord(pk.h_p128[j], 1))
+        want = h * pow(2, 16 * w, grp.r)
+        row = h16[w * Nh + j]
+        assert (coord(row, 0), coord(row, 1), coord(row, 2)) == (want.x, want.y, (-want).y), (w, j)
+    zero_row, _ = tg._fb_g1(CURVE, [0], "cpu")
+    for w in (0, Wc - 1):
+        np.testing.assert_array_equal(h16[w * Nh + k : (w + 1) * Nh], np.broadcast_to(zero_row, (Nh - k, 128)))
+
+    jpk = jax_keys[0]
+    points = {name: (getattr(jpk, name).x, getattr(jpk, name).y) for name in convert.PK_G1}
+    for name in convert.PK_G2:
+        pt = getattr(jpk, name)
+        points[name] = ((pt.x.c0, pt.x.c1), (pt.y.c0, pt.y.c1))
+    arrays = {name: np.asarray(getattr(jpk, name)) for name in convert.PK_ARRAYS}
+    assert convert.proving_key(CURVE, jpk.domain_size, jpk.num_instance, points, arrays).h16_p128 is None
+    arrays["h16_p128"] = h16
+    carried = convert.proving_key(CURVE, jpk.domain_size, jpk.num_instance, points, arrays)
+    np.testing.assert_array_equal(carried.h16_p128, h16)
+
+
 def test_port_verify(circuit, jax_keys, jax_proof):
     """The port's verify accepts the JAX proof and rejects a forged one."""
     from zokrates_tpu_torch.schemes.types import VerificationKey as TVK
@@ -217,7 +283,7 @@ def test_split_helpers_match_reference():
         z[:, 15] &= 0x0FFF  # below the field modulus
         cfg, jcfg = default_config(N), j_default(N)
         W = 32
-        nnz = tg._window_nnz(z, W, cfg.c)
+        nnz = tg._window_nnz_batch([z], W, cfg.c)
         assert nnz == jg._window_nnz(z, W, jcfg.c)
         for native in (True, False):
             assert tg._split_with_host(nnz, W, cfg, N, native) == jg._split_with_host(nnz, W, jcfg, N, native)

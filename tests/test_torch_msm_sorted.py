@@ -6,7 +6,10 @@ where its wrappers run the kernels' plain PyTorch versions.
     (zokrates_tpu.ec), snapshot by snapshot;
   * the scalar plan (signed digits, stable per-window sort, walk flags,
     record compaction) against the JAX package's _msm_plan, dense and
-    split;
+    split, and its shared-bucket plan _msm_plan_shared at c = 8 and at the
+    h16 configuration (c = 16, 1024 lanes);
+  * the shared-bucket MSM (pre-shifted points 2^(cw) * P_j, one window)
+    at N = 64 against the oracle;
   * the full sorted MSM at N = 1024 for G1 and G2, its window sums, the
     collision flag and the safe rerun, against the oracle;
   * the wrappers' argument checks.
@@ -224,6 +227,20 @@ def test_plan_matches_reference(split):
             np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int64))
 
 
+@pytest.mark.parametrize("c,M1,R,lw2,N", [(8, 32, 2, 8, 64), (16, 1024, 4, 1024, 256)],
+                         ids=["c8", "h16"])
+def test_plan_shared_matches_reference(c, M1, R, lw2, N):
+    cfg = ms.MSMConfig(c=c, M1=M1, R=R, lw2=lw2)
+    jcfg = jms.MSMConfig(c=c, M1=M1, R=R, lw2=lw2, interpret=True)
+    Wc = ms.shared_window_count(R_MOD, c)
+    assert Wc == jms.shared_window_count(R_MOD, c)
+    limbs = ints_to_limbs(_scalars(N, 21, bits_small=0.2), 16)
+    mine = ms._msm_plan_shared(Wc, N, cfg, torch.as_tensor(limbs.astype(np.int64)))
+    ref = jms._msm_plan_shared(Wc, N, jcfg, jnp.asarray(limbs))
+    for got, want in zip(mine, ref):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int64))
+
+
 def test_signed_digits_match_reference():
     sc = _scalars(256, 8, bits_small=0.1) + [R_MOD - 1, 0, 1, (1 << 253) + 12345]
     limbs = ints_to_limbs(sc, 16)
@@ -384,3 +401,31 @@ def test_wrappers_reject_bad_arguments():
         ms.suffix(torch.zeros((2, 48, 8), dtype=torch.int32), torch.zeros((2, 48, 4), dtype=torch.int32), Q)
     with pytest.raises(ValueError):
         ms.walk(q.to("meta"), fl.to("meta"), Q, "mixed", True)
+
+
+def test_shared_bucket_msm_matches_oracle():
+    """The shared-bucket fixed-base form: the Wc window copies 2^(cw) * P_j
+    fall into ONE bucket space, and the single window's sum is the whole
+    MSM (no window combine). Full-width scalars, c = 8."""
+    N = 64
+    rng = random.Random(22)
+    grp = g1_group("bn128")
+    ks = [rng.randrange(1, R_MOD) for _ in range(N)]
+    sc = [rng.randrange(R_MOD) for _ in range(N)]
+    cfg = ms.MSMConfig(c=8, M1=32, R=2, lw2=8)
+    Wc = ms.shared_window_count(R_MOD, cfg.c)
+    g = grp.generator()
+    rows = [[g * k for k in ks]]  # window w+1: window w doubled c times
+    for _ in range(Wc - 1):
+        rows.append(rows[-1])
+        for _ in range(cfg.c):
+            rows[-1] = [p + p for p in rows[-1]]
+    shifted = [p for row in rows for p in row]
+    f = field_ops(Q)
+    P128 = ms.pack_points(Q, f.encode([p.x for p in shifted]), f.encode([p.y for p in shifted]))
+    S = torch.as_tensor(ints_to_limbs(sc, 16).astype(np.int64))
+    out, _ = ms._msm_from_plan(Q, 1, cfg, P128[None], ms._msm_plan_shared(Wc, N, cfg, S), True)
+    wins = tuple(a[0].numpy() for a in out)
+    assert wins[0].shape == (1, 16)
+    got = _host_point(ms.combine_windows(Q, R_MOD, wins, 1, cfg.c, native=False), False, grp)
+    assert got == g * (sum(k * s for k, s in zip(ks, sc)) % R_MOD)

@@ -23,6 +23,9 @@ PK_ARRAYS = (
     "a_p128", "a_mask", "b1_p128", "b1_mask", "b2_p128", "b2_mask",
     "h_p128", "l_p128", "l_mask", "corr_w",
 )
+# carried when present: the shared-bucket h query (None on a key the JAX
+# package made off a TPU)
+PK_OPTIONAL = ("h16_p128",)
 PK_G1 = ("alpha_g1", "beta_g1", "delta_g1")
 PK_G2 = ("beta_g2", "delta_g2")
 
@@ -46,13 +49,15 @@ def proving_key(curve: str, domain_size: int, num_instance: int,
                 points: Dict[str, object], arrays: Dict[str, np.ndarray]) -> ProvingKey:
     """points: PK_G1 names -> (x, y) ints, PK_G2 names -> ((x0, x1),
     (y0, y1)) ints. arrays: PK_ARRAYS names -> numpy arrays in the JAX
-    package's layout (uint32 packed rows, bool masks, uint32 weights)."""
+    package's layout (uint32 packed rows, bool masks, uint32 weights);
+    PK_OPTIONAL names may be absent or None."""
     missing = [k for k in PK_ARRAYS if k not in arrays] + [
         k for k in PK_G1 + PK_G2 if k not in points
     ]
     if missing:
         raise KeyError(f"proving key fields missing: {missing}")
     kw = {k: np.array(arrays[k], copy=True) for k in PK_ARRAYS}
+    kw.update({k: np.array(arrays[k], copy=True) for k in PK_OPTIONAL if arrays.get(k) is not None})
     kw.update({k: g1_point(curve, points[k]) for k in PK_G1})
     kw.update({k: g2_point(curve, points[k]) for k in PK_G2})
     return ProvingKey(curve=curve, domain_size=int(domain_size), num_instance=int(num_instance), **kw)

@@ -1,12 +1,15 @@
 """Device-resident R1CS: the COO constraint matrices of the QAP.
 
-The counterpart of the JAX package's ir/r1cs_device.py (COO form). The
-matrices live on the device as row-sorted COO tensors with Montgomery
-coefficients; the prover's matvec (schemes/groth16._h_stage) is
+The counterpart of the JAX package's ir/r1cs_device.py. The matrices live
+on the device as row-sorted COO tensors with Montgomery coefficients; the
+prover's matvec (schemes/groth16._h_stage) takes one of two forms:
 
-    gather z[col] -> Montgomery mul by coeff -> per-limb segment sum
-    (lazy: 16-bit-limb products summed without carries) -> one
-    reduce_wide per output row.
+  * COO (the CPU):  gather z[col] -> Montgomery mul by coeff -> per-limb
+    segment sum (lazy: 16-bit-limb products summed without carries) ->
+    one reduce_wide per output row;
+  * the mulacc walk (a CUDA device): the layout of build_mulacc_walk,
+    walked by the mulacc_walk kernel (kernels/pallas_field.py), which
+    multiplies and accumulates each row's run of records in one pass.
 
 The instance-binding rows ark appends (A[nc + j] = z_j, binding public
 inputs into the A polynomial) are ordinary COO entries.
@@ -37,6 +40,11 @@ class COOMatrix:
     cols: torch.Tensor  # (nnz,) int64
     coeff: torch.Tensor  # (nnz, nl) int64 Montgomery
     n_rows: int
+    # numpy copies of rows, cols and coeff, for host-side planning (the
+    # mulacc-walk layout)
+    rows_np: np.ndarray = None
+    cols_np: np.ndarray = None
+    coeff_np: np.ndarray = None
 
 
 def _to_coo(rows_py: List[List[Tuple[int, int]]], extra, n_rows: int, p: int, device) -> COOMatrix:
@@ -71,6 +79,9 @@ def _to_coo(rows_py: List[List[Tuple[int, int]]], extra, n_rows: int, p: int, de
         torch.as_tensor(c_arr, device=device),
         co_mont,
         n_rows,
+        rows_np=r_arr,
+        cols_np=c_arr,
+        coeff_np=co_mont.cpu().numpy(),
     )
 
 
@@ -107,3 +118,105 @@ class R1CSDevice:
             B=_to_coo(r1cs.B, [], n, p, device),
             C=_to_coo(r1cs.C, [], n, p, device),
         )
+
+
+@dataclass
+class MulaccWalk:
+    """Walk-layout plan of the fused 3-matrix sparse matvec
+    (kernels/pallas_field.mulacc_walk). All index structure is
+    circuit-static: the records are the row-sorted concatenation of the A,
+    B, C COO entries with rows offset into disjoint blocks of 3n segments;
+    lane m of M = S*128 owns records [m*K, (m+1)*K).
+
+    The arrays equal the reference's; coeff_walk and flags_walk merge its
+    trailing (S, 128) lane axes into one axis of M lanes (lane-minor, as
+    the kernel loads them) and flags_walk its (T, R) axes into K."""
+
+    cols: torch.Tensor        # (Lp,) int64 gather indices into z
+    coeff_walk: torch.Tensor  # (K, nl, M) int64 Montgomery coefficients
+    flags_walk: torch.Tensor  # (K, M) int32 flush flags
+    pos: torch.Tensor         # (P,) int64 flush positions in record space
+    seg: torch.Tensor         # (P,) int64 segment (row) ids, sorted
+    K: int
+    R: int
+    S: int
+    n_rows: int               # 3n
+
+    @property
+    def M(self) -> int:
+        return self.S * 128
+
+
+_MULACC_R = 4
+_MULACC_S = 8  # M = 1024 lanes
+
+
+def build_mulacc_walk(dev: "R1CSDevice") -> MulaccWalk:
+    """Build (and cache on dev) the walk plan from the numpy COO sidecars,
+    on dev's device.
+
+    Raises ValueError when a lane's K records could overflow the lazy
+    sums: a flushed run sums at most K 16-bit-limb products per limb, and
+    ereduce_wide takes sums below 2^31, so K is bounded by MAX_ROW_TERMS as
+    rows are on the COO path. (The reference asserts no such bound.)"""
+    cached = getattr(dev, "_mulacc_walk", None)
+    if cached is not None:
+        return cached
+    n = dev.n
+    nl = dev.A.coeff_np.shape[1]
+    rows = np.concatenate(
+        [dev.A.rows_np, dev.B.rows_np + n, dev.C.rows_np + 2 * n]
+    ).astype(np.int64)
+    cols = np.concatenate([dev.A.cols_np, dev.B.cols_np, dev.C.cols_np])
+    coeff = np.concatenate([dev.A.coeff_np, dev.B.coeff_np, dev.C.coeff_np])
+    L = rows.shape[0]
+    M = _MULACC_S * 128
+    R = _MULACC_R
+    K = -(-L // M)
+    K = -(-K // R) * R
+    if K > MAX_ROW_TERMS:
+        raise ValueError(
+            f"mulacc walk: {K} records per lane (> {MAX_ROW_TERMS}); "
+            "lazy limb accumulation would exceed its headroom"
+        )
+    Lp = M * K
+    rows_pad = np.concatenate([rows, np.full(Lp - L, 3 * n, np.int64)])
+    cols_pad = np.concatenate([cols, np.zeros(Lp - L, cols.dtype)])
+    coeff_pad = np.concatenate(
+        [coeff, np.zeros((Lp - L, nl), coeff.dtype)]
+    )  # zero coeff -> zero product at padded records
+
+    # flush after record j when the row changes or j is its lane's last
+    nxt = np.concatenate([rows_pad[1:], np.asarray([-1], np.int64)])
+    flush = rows_pad != nxt
+    j = np.arange(Lp)
+    flush |= (j % K) == (K - 1)
+
+    pos = np.nonzero(flush)[0]
+    seg = rows_pad[pos]  # ascending (rows sorted, lanes contiguous)
+    # pad the flush set to a multiple of 8192, as the reference does
+    P = pos.shape[0]
+    Pp = -(-P // 8192) * 8192
+    pos = np.concatenate([pos, np.full(Pp - P, Lp - 1, np.int64)])
+    seg = np.concatenate([seg, np.full(Pp - P, 3 * n, np.int64)])
+
+    cw = coeff_pad.reshape(M, K, nl).transpose(1, 2, 0)  # (K, nl, M)
+    fl = flush.astype(np.int32).reshape(M, K).T          # (K, M)
+    device = dev.A.rows.device
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a).astype(dtype), device=device)
+
+    walk = MulaccWalk(
+        cols=t(cols_pad, np.int64),
+        coeff_walk=t(cw, np.int64),
+        flags_walk=t(fl, np.int32),
+        pos=t(pos, np.int64),
+        seg=t(seg, np.int64),
+        K=K,
+        R=R,
+        S=_MULACC_S,
+        n_rows=3 * n,
+    )
+    dev._mulacc_walk = walk
+    return walk

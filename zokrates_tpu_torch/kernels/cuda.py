@@ -29,6 +29,7 @@ SOURCES = {
     "zkt_msm": os.path.join(CSRC, "msm_sorted.cu"),
     "zkt_field": os.path.join(CSRC, "field_elementwise.cu"),
     "zkt_ntt": os.path.join(CSRC, "ntt.cu"),
+    "zkt_mulacc": os.path.join(CSRC, "mulacc.cu"),
 }
 HEADERS = [os.path.join(CSRC, "field.cuh")]
 ARCH = "arch=compute_90a,code=sm_90a"
@@ -88,6 +89,9 @@ def load() -> SimpleNamespace:
         },
         "zkt_ntt": {
             "zkt_ntt_pass": [P, P, P, P, I, I, I, I, I, L, L, U, P],
+        },
+        "zkt_mulacc": {
+            "zkt_mulacc_walk": [P, P, P, P, I, I, I, L, L, U, P],
         },
     }
     fns = SimpleNamespace()

@@ -359,6 +359,10 @@ def _plan_shapes(N: int, W: int, cfg: MSMConfig):
         raise ValueError(f"point count {N} is not a multiple of M1*R = {M1 * R}")
     step = lw2 * R
     cap1 = -(-(min(N, hb + M1)) // step) * step
+    if cap1 > N:
+        # compaction would pad with position 0 and could take its record
+        # twice (the reference has no such check)
+        raise ValueError(f"record capacity {cap1} exceeds the {N} sorted positions (lw2*R = {step})")
     return dict(hb=hb, K1=K1, cap1=cap1, cap2=cap1, L4=hb // lw2)
 
 
@@ -460,6 +464,32 @@ def _plan_finish(W: int, cfg: MSMConfig, sb, sidx):
     gpos = _compact_positions(valid, sh["cap1"])
     rec_buck = torch.where(valid.gather(1, gpos), sb.gather(1, gpos), 0)
     return sidx, flags2d, gpos, rec_buck
+
+
+def shared_window_count(r_mod: int, c: int = 16) -> int:
+    """Window count for the shared-bucket fixed-base form (see
+    _msm_plan_shared)."""
+    return _windows(r_mod, c)
+
+
+def _msm_plan_shared(Wc: int, N: int, cfg: MSMConfig, scalars):
+    """Shared-bucket fixed-base plan: one stable sort over all (window,
+    point) pairs.
+
+    For fixed bases (the Groth16 h query) the proving key can store the
+    pre-shifted copies 2^(c*w) * P_j; every window's digits then fall into
+    ONE shared bucket space, so the whole Wc-window MSM is a single-window
+    walk over Wc*N sorted slots with one suffix and epilogue over 2^(c-1)
+    buckets, and no window combine (the shifts live in the bases).
+
+    scalars: (N, nls) canonical limbs. Returns a plan for _msm_from_plan
+    with W = 1 and a point array of Wc*N packed rows, row w*N + j holding
+    2^(c*w) * P_j."""
+    buckets, signs = _signed_digits(scalars, Wc, cfg.c)                # (Wc, N)
+    idx = torch.arange(Wc * N, device=scalars.device).reshape(Wc, N)  # rows w*N + j
+    payload = (idx | (signs << 31)).reshape(1, Wc * N)
+    sb, order = torch.sort(buckets.reshape(1, Wc * N), dim=1, stable=True)
+    return _plan_finish(1, cfg, sb, payload.gather(1, order))
 
 
 def _msm_plan_split(W: int, N: int, cfg: MSMConfig, scalars, w0: int, Ks: int):

@@ -17,7 +17,10 @@ Beside them, the counterparts of the reference's elementwise field
 kernels: emul (its _emul_call / emul) and ereduce_wide (its _ereduce_call
 / ereduce_wide), CUDA kernels in csrc/field_elementwise.cu, each with its
 plain version (emul_plain, ereduce_wide_plain: jfield's mul and
-reduce_wide), which the wrapper runs only for tensors on the CPU.
+reduce_wide), which the wrapper runs only for tensors on the CPU; and the
+sparse matvec's multiply-accumulate walk mulacc_walk (its _mulacc_call /
+mulacc_walk), CUDA kernel in csrc/mulacc.cu, plain version
+mulacc_walk_plain.
 """
 
 from __future__ import annotations
@@ -248,4 +251,84 @@ def ereduce_wide(p: int, t):
                                   torch.cuda.current_stream(t.device).cuda_stream)
     cuda.check(rc, "ereduce_wide")
     LAUNCHES["ereduce_wide"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Fused multiply-accumulate segment walk (sparse matvec)
+# ---------------------------------------------------------------------------
+
+# records per lane the kernel's 32-bit limb sums hold exactly:
+# 2^16 * (2^16 - 1) < 2^32
+MULACC_MAX_K = 1 << 16
+
+
+def mulacc_walk_plain(p: int, z_walk, coeff_walk, flags_walk):
+    """Plain version of the mulacc_walk kernel: every record's product at
+    once (jfield's mul), then per lane the running sums restarted after
+    each flushed record, as differences of one cumulative sum. Same
+    arguments and result as mulacc_walk()."""
+    B, K, nl, M = z_walk.shape
+    prod = field_ops(p).mul(z_walk.permute(0, 1, 3, 2), coeff_walk.permute(0, 2, 1))  # (B, K, M, nl)
+    run = prod.cumsum(1)
+    k = torch.arange(K, device=z_walk.device)[:, None]
+    last = torch.where(flags_walk != 0, k, -1).cummax(0).values   # last flush at or before k
+    prev = torch.cat([last.new_full((1, M), -1), last[:-1]])     # ... strictly before k
+    base = run.gather(1, prev.clamp(min=0)[None, :, :, None].expand(B, K, M, nl))
+    out = run - torch.where((prev >= 0)[None, :, :, None], base, 0)
+    return out.permute(0, 1, 3, 2).contiguous()
+
+
+def _check_packed(name, t, dtype, shape):
+    if not isinstance(t, torch.Tensor) or t.dtype != dtype:
+        raise TypeError(f"{name}: expected a {dtype} tensor, got {getattr(t, 'dtype', type(t))}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def mulacc_walk(p: int, z_walk, coeff_walk, flags_walk):
+    """Sparse-matvec walk (CUDA kernel mulacc_kernel, the reference's
+    mulacc_walk): lane m of proof b walks its K records in order; record k
+    adds the Montgomery product z*coeff limb by limb, without carries, into
+    the lane's 16-bit-limb accumulator, the accumulator after the add is
+    the record's output, and a record flagged nonzero resets it to 0 after
+    its output. So a flushed record's output is the lazy sum of its run.
+
+    z_walk: (B, K, nl, M) int64 gathered witness values (Montgomery,
+    canonical); coeff_walk: (K, nl, M) int64 Montgomery coefficients,
+    shared by the batch; flags_walk: (K, M) int32. All contiguous and
+    lane-minor. Returns (B, K, nl, M) int64 lazy sums, each limb below
+    2^16 * K (K <= MULACC_MAX_K). CPU tensors take mulacc_walk_plain; CUDA
+    tensors launch the kernel."""
+    nl = field_spec(p).nl
+    if not isinstance(z_walk, torch.Tensor) or z_walk.dim() != 4:
+        raise ValueError(f"z_walk: expected a (B, K, {nl}, M) tensor")
+    B, K, _, M = z_walk.shape
+    _check_packed("z_walk", z_walk, torch.int64, (B, K, nl, M))
+    _check_packed("coeff_walk", coeff_walk, torch.int64, (K, nl, M))
+    _check_packed("flags_walk", flags_walk, torch.int32, (K, M))
+    if K > MULACC_MAX_K:
+        raise ValueError(f"mulacc_walk: {K} records per lane, at most {MULACC_MAX_K}")
+    for name, t in (("coeff_walk", coeff_walk), ("flags_walk", flags_walk)):
+        if t.device != z_walk.device:
+            raise ValueError(f"{name}: on {t.device}, expected {z_walk.device}")
+    if z_walk.device.type == "cpu":
+        return mulacc_walk_plain(p, z_walk, coeff_walk, flags_walk)
+    if z_walk.device.type != "cuda":
+        raise ValueError(f"mulacc_walk: unsupported device {z_walk.device}")
+    from . import cuda
+
+    lib = cuda.load()
+    pl, one, n0, _ = cuda.field_params(p, None)
+    out = torch.empty_like(z_walk)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(z_walk.device):
+        rc = lib.zkt_mulacc_walk(z_walk.data_ptr(), coeff_walk.data_ptr(), flags_walk.data_ptr(),
+                                 out.data_ptr(), B, K, M, pl, one, n0,
+                                 torch.cuda.current_stream(z_walk.device).cuda_stream)
+    cuda.check(rc, "mulacc_walk")
+    LAUNCHES["mulacc_walk"] += 1
     return out

@@ -9,14 +9,21 @@ configuration on hardware:
     (kernels/fixed_base.py); the pk stores points pre-packed in the MSM
     layout ((m, 128) uint32 rows [x|y|-y|pad], Montgomery 16-bit limbs),
     bit-equal to the JAX package's pk for the same randomness,
-  * proving evaluates A·z / B·z / C·z as COO sparse matvecs
-    (ir/r1cs_device.py), computes h(X) = (A·B - C)/Z with coset NTTs
-    (kernels/ntt.py), its elementwise products and lazy-sum reductions in
-    the kernels of kernels/pallas_field.py, and runs the four witness MSMs
-    and the h MSM through the sorted MSM (kernels/msm_sorted.py: plans in
-    PyTorch, bucket walks, suffix and its epilogue in CUDA); the windows a
-    witness barely touches, and the window combine and the A/B/C
-    randomization, run in the native C host library (native/),
+  * proving evaluates A·z / B·z / C·z with the fused multiply-accumulate
+    walk on a CUDA device (the mulacc_walk kernel over the layout of
+    ir/r1cs_device.build_mulacc_walk) and as COO sparse matvecs on the
+    CPU, computes h(X) = (A·B - C)/Z with coset NTTs (kernels/ntt.py), its
+    elementwise products and lazy-sum reductions in the kernels of
+    kernels/pallas_field.py, and runs the four witness MSMs and the h MSM
+    through the sorted MSM (kernels/msm_sorted.py: plans in PyTorch,
+    bucket walks, suffix and its epilogue in CUDA); on a CUDA device the h
+    MSM takes the shared-bucket c=16 form over the pk's pre-shifted query
+    h16_p128; the windows a witness barely touches, and the window combine
+    and the A/B/C randomization, run in the native C host library
+    (native/),
+  * prove_batch proves B witnesses of one circuit with one batched h
+    stage (one mulacc_walk launch, one stacked NTT call per stage), the
+    MSMs proof by proof, one fetch, and the host tails on threads,
   * verification uses the host pairing-product oracle (ec/pairing.py).
 
 Proof/VK JSON is byte-compatible with the reference's {a,b,c} /
@@ -41,10 +48,10 @@ from ..fields import params as P
 from ..fields.jfield import field_ops
 from ..fields.limbs import int_to_limbs, ints_to_limbs, limbs_to_ints, n_limbs
 from ..ir.r1cs import R1CS
-from ..ir.r1cs_device import R1CSDevice
+from ..ir.r1cs_device import R1CSDevice, build_mulacc_walk
 from ..ir.witness import Witness
 from ..kernels.ntt import domain_for_curve
-from ..kernels.pallas_field import emul, ereduce_wide
+from ..kernels.pallas_field import emul, ereduce_wide, mulacc_walk
 from .types import (
     Proof,
     VerificationKey,
@@ -101,6 +108,7 @@ class ProvingKey:
         l_p128: np.ndarray,
         l_mask: np.ndarray,
         corr_w: np.ndarray,
+        h16_p128: Optional[np.ndarray] = None,
     ):
         self.curve = curve
         self.domain_size = domain_size
@@ -120,12 +128,21 @@ class ProvingKey:
         self.l_p128 = l_p128
         self.l_mask = l_mask
         self.corr_w = corr_w  # (3, m, nl) Montgomery dummy weights: a, b, l
+        # shared-bucket fixed-base h query: (Wc * N_hw, 128) rows, row
+        # w*N_hw + j = 2^(16w) * h_j (see _h16_p128); None on the CPU and
+        # for large domains
+        self.h16_p128 = h16_p128
         self._dev: Dict = {}
 
     def __getstate__(self):
         d = dict(self.__dict__)
         d["_dev"] = {}
         return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self.__dict__.setdefault("h16_p128", None)
+        self._dev = {}
 
     def dev(self, device, N: int, m: int) -> Dict[str, torch.Tensor]:
         """Device copies padded to the MSM tier N (cached per device, N)."""
@@ -144,6 +161,8 @@ class ProvingKey:
                     np.pad(self.corr_w, ((0, 0), (0, N - m), (0, 0))).astype(np.int64), device=device
                 ),
             }
+            if self.h16_p128 is not None:
+                d["h16"] = t(self.h16_p128[None])
             self._dev[key] = d
         return d
 
@@ -224,6 +243,50 @@ def _fb_g2(curve: str, scalars: List[int], device):
     return ax, ay, ~inf
 
 
+def _hw_fused_tier(m: int, n: int) -> int:
+    """The padded point count of the prover on hardware for m variables over
+    an n-domain (power-of-two tier rounded to the walk granularity M1*R =
+    4096). Setup lays out the shared-bucket h query with this row stride."""
+    N = max(_msm_tier(m), _msm_tier(n - 1))
+    return -(-N // 4096) * 4096
+
+
+def _h16_p128(curve: str, h_p128: np.ndarray, Nh: int, device) -> np.ndarray:
+    """The shared-bucket h query from the packed h query rows (k points):
+    (Wc * Nh, 128) packed rows, row w*Nh + j holding 2^(16w) * h_j for
+    j < k, and past k the zero row, which is how _fb_g1 packs the point at
+    infinity of a zero scalar (the reference pads with zero scalars).
+
+    The reference computes the rows as _fb_g1 of the shifted scalars. Here
+    window w+1 is window w doubled 16 times, in Jacobian coordinates, and
+    all windows are normalized together (one batched inversion):
+    2^(16w) * h_j is one affine point, so the rows are the same bits."""
+    from ..kernels.fixed_base import batch_normalize
+    from ..kernels.jec import curve_ops
+    from ..kernels.msm_sorted import pack_points, shared_window_count
+
+    q = P.BASE_FIELDS[curve].p
+    Wc = shared_window_count(P.SCALAR_FIELDS[curve].p, 16)
+    ops = curve_ops(q)
+    f = ops.f
+    k = h_p128.shape[0]
+    if k > Nh:
+        raise ValueError(f"h query of {k} points does not fit a row stride of {Nh}")
+    xy = torch.as_tensor(h_p128[:, : 2 * f.nl].astype(np.int64), device=device)
+    X, Y = xy[:, : f.nl], xy[:, f.nl :]
+    inf = (xy == 0).all(1)  # the zero row: no affine point of the curve
+    pt = (X, Y, f.select(inf, f.zero_like(X), f.one_like(X)))
+    wins = [pt]
+    for _ in range(Wc - 1):
+        for _ in range(16):
+            pt = ops.double(pt)
+        wins.append(pt)
+    ax, ay, _ = batch_normalize(ops, tuple(torch.cat([p[i] for p in wins]) for i in range(3)))
+    out = np.zeros((Wc, Nh, 128), np.uint32)
+    out[:, :k] = pack_points(q, ax, ay).cpu().numpy().astype(np.uint32).reshape(Wc, k, 128)
+    return out.reshape(Wc * Nh, 128)
+
+
 def setup(r1cs: R1CS, rng=None, device="cuda") -> Tuple[ProvingKey, "VerificationKey"]:
     """Circuit-specific Groth16 setup. rng() draws the five toxic-waste
     scalars (alpha, beta, gamma, delta, tau) in that order."""
@@ -282,6 +345,12 @@ def setup(r1cs: R1CS, rng=None, device="cuda") -> Tuple[ProvingKey, "Verificatio
     b1_p128, _ = _fb_g1(curve, dummied(b_t), device)
     h_p128, _ = _fb_g1(curve, h_s, device)
     l_p128, _ = _fb_g1(curve, dummied(l_full), device)
+    # the shared-bucket form of the h query, for the prover on a CUDA
+    # device (the reference builds it on a TPU); gated to n - 1 <= 2^17,
+    # since it stores Wc = 16 shifted copies of the query
+    h16_p128 = None
+    if torch.device(device).type == "cuda" and n - 1 <= (1 << 17):
+        h16_p128 = _h16_p128(curve, h_p128, _hw_fused_tier(m, n), device)
     b2x, b2y, _ = _fb_g2(curve, dummied(b_t), device)
     b2_p128 = pack_points_g2(P.BASE_FIELDS[curve].p, b2x, b2y).cpu().numpy().astype(np.uint32)
     corr_w = np.stack([weights(a_t), weights(b_t), weights(l_full)])
@@ -308,6 +377,7 @@ def setup(r1cs: R1CS, rng=None, device="cuda") -> Tuple[ProvingKey, "Verificatio
         l_p128=l_p128,
         l_mask=np.asarray([s != 0 for s in l_full], dtype=bool),
         corr_w=corr_w,
+        h16_p128=h16_p128,
     )
     vk = VerificationKey(
         "g16",
@@ -341,14 +411,63 @@ def _row(p: int, value: int, device) -> torch.Tensor:
     return t
 
 
+def _matvec_kind(device) -> str:
+    """'walk' (the fused mulacc_walk kernel) on a CUDA device, 'coo' on the
+    CPU, as the reference takes its walk on hardware."""
+    return "walk" if torch.device(device).type == "cuda" else "coo"
+
+
+def _matvec_coo(p: int, dev: R1CSDevice, Z_mont: torch.Tensor) -> torch.Tensor:
+    """(B, m, nl) Montgomery z -> (B, 3n, nl) A·z | B·z | C·z, canonical:
+    rows offset into disjoint blocks [0, n), [n, 2n), [2n, 3n), so one
+    gather, one product, one index_add_ and one reduction."""
+    n = dev.n
+    B, _, nl = Z_mont.shape
+    rows = torch.cat([dev.A.rows, dev.B.rows + n, dev.C.rows + 2 * n])
+    cols = torch.cat([dev.A.cols, dev.B.cols, dev.C.cols])
+    coeff = torch.cat([dev.A.coeff, dev.B.coeff, dev.C.coeff])
+    vals = emul(p, Z_mont[:, cols], coeff)
+    sums = torch.zeros((B, 3 * n, nl), dtype=torch.int64, device=Z_mont.device)
+    sums.index_add_(1, rows, vals)
+    return ereduce_wide(p, sums)
+
+
+def _matvec_walk(p: int, dev: R1CSDevice, Z_mont: torch.Tensor) -> torch.Tensor:
+    """The reference's pipeline_walk matvec, same result as _matvec_coo:
+    gather z into the walk layout, one mulacc_walk launch for the batch,
+    the flushed records' lazy sums gathered and reduced, summed per row
+    (one extra row, 3n, takes the padding), and reduced again."""
+    w = build_mulacc_walk(dev)
+    B, _, nl = Z_mont.shape
+    K, M = w.K, w.M
+    d = Z_mont.device
+    bi = torch.arange(B, device=d)
+    li = torch.arange(nl, device=d)
+    # zw[b, k, l, m] = Z_mont[b, cols[m*K + k], l]
+    zw = Z_mont[bi[:, None, None, None], w.cols.view(M, K).T[None, :, None, :],
+                li[None, None, :, None]].contiguous()
+    out = mulacc_walk(p, zw, w.coeff_walk, w.flags_walk)
+    del zw
+    # record j of the stream is lane j // K's step j % K
+    snap = out[bi[:, None, None], (w.pos % K)[None, :, None], li[None, None, :],
+               (w.pos // K)[None, :, None]].contiguous()
+    del out
+    part = ereduce_wide(p, snap)
+    sums = torch.zeros((B, w.n_rows + 1, nl), dtype=torch.int64, device=d)
+    sums.index_add_(1, w.seg, part)
+    return ereduce_wide(p, sums[:, : w.n_rows].contiguous())
+
+
 def _h_stage(curve: str, dev: R1CSDevice, Z: torch.Tensor) -> torch.Tensor:
     """z (B, m, nl) canonical limbs -> h(X) coefficients (B, n, nl)
-    canonical: to_mont, one fused 3-matrix matvec, QAP coset-NTT division,
+    canonical: to_mont, one fused 3-matrix matvec (the walk or COO, as
+    _matvec_kind picks for the device), QAP coset-NTT division,
     from_mont. All 3B transforms of a stage run as one batched op. The
     elementwise products (to_mont and from_mont among them, as products by
-    the R^2 and 1 rows), the lazy-sum reduction and the transforms go
-    through the kernels emul, ereduce_wide and (in Domain) fft_core, as the
-    reference goes through its Pallas kernels on a TPU; sub stays plain."""
+    the R^2 and 1 rows), the lazy-sum reductions, the matvec walk and the
+    transforms go through the kernels emul, ereduce_wide, mulacc_walk and
+    (in Domain) fft_core, as the reference goes through its Pallas kernels
+    on a TPU; sub and the per-row index_add_ stay plain."""
     p = P.SCALAR_FIELDS[curve].p
     f = field_ops(p)
     n = dev.n
@@ -359,15 +478,8 @@ def _h_stage(curve: str, dev: R1CSDevice, Z: torch.Tensor) -> torch.Tensor:
     Z = Z.to(torch.int64)
     B, m, nl = Z.shape
     Z_mont = emul(p, Z, _row(p, f.spec.r2, Z.device).expand(m, nl))
-    # one fused 3-matrix matvec: rows offset into disjoint blocks [0, n),
-    # [n, 2n), [2n, 3n), so one gather, one product and one index_add_
-    rows = torch.cat([dev.A.rows, dev.B.rows + n, dev.C.rows + 2 * n])
-    cols = torch.cat([dev.A.cols, dev.B.cols, dev.C.cols])
-    coeff = torch.cat([dev.A.coeff, dev.B.coeff, dev.C.coeff])
-    vals = emul(p, Z_mont[:, cols], coeff)
-    sums = torch.zeros((B, 3 * n, nl), dtype=torch.int64, device=Z.device)
-    sums.index_add_(1, rows, vals)
-    abc_e = ereduce_wide(p, sums).reshape(B * 3, n, nl)
+    matvec = _matvec_walk if _matvec_kind(Z.device) == "walk" else _matvec_coo
+    abc_e = matvec(p, dev, Z_mont).reshape(B * 3, n, nl)
     abc_cs = dom.coset_fft(dom.ifft(abc_e), g).reshape(B, 3, n, nl)
     ab = emul(p, abc_cs[:, 0], abc_cs[:, 1])
     h_cs = emul(p, f.sub(ab, abc_cs[:, 2]), _row(p, zinv_mont, Z.device).expand(n, nl))
@@ -422,10 +534,13 @@ def _signed_digits_np(z_limbs: np.ndarray, W: int, c: int):
     return digits, signs
 
 
-def _window_nnz(z_limbs: np.ndarray, W: int, c: int) -> List[int]:
-    """Exact per-window nonzero signed-digit counts of the witness."""
-    digits, _ = _signed_digits_np(z_limbs, W, c)
-    return [int(np.count_nonzero(digits[w])) for w in range(W)]
+def _window_nnz_batch(Z_np: List[np.ndarray], W: int, c: int) -> List[int]:
+    """Exact per-window nonzero signed-digit counts, maxed over a batch of
+    witnesses in one vectorized pass: a window split that holds for every
+    witness."""
+    digits, _ = _signed_digits_np(np.concatenate(Z_np, axis=0), W, c)
+    counts = np.count_nonzero(digits.reshape(W, len(Z_np), Z_np[0].shape[0]), axis=2)  # (W, B)
+    return [int(v) for v in counts.max(axis=1)]
 
 
 _SPLIT_W0S = (0, 1, 2, 3, 4, 6, 8, 12, 16)
@@ -553,41 +668,88 @@ def _corr_fast(f, corr_w, z_pad, C: int, chunk: int):
     return emul(p, s, _row(p, 1, z_pad.device).expand(3, nl))[0]
 
 
-def _prove_device(curve, dev, pkd, z_pad, N, n, W, cfg, w0, w1, Ks, mark):
-    """The whole device part of one proof: h stage, the witness and h
-    plans, the three witness G1 MSMs as one query batch, the h G1 MSM, the
-    G2 MSM, and the dummy corrections. Returns window sums (Montgomery
-    limb tensors) and the correction scalars (canonical limbs)."""
-    from ..kernels.msm_sorted import _msm_from_plan, _msm_plan, _msm_plan_split
+def _shared_h_cfg(cfg):
+    """MSMConfig of the shared-bucket h walk: c=16 digits into one 2^15-
+    bucket space; lw2=1024 keeps the single window's merge and suffix walks
+    at 1024 lanes."""
+    from ..kernels.msm_sorted import MSMConfig
+
+    return MSMConfig(c=16, M1=cfg.M1, R=cfg.R, lw2=1024)
+
+
+def _use_h16(pk, p: int, N: int, device) -> bool:
+    """The shared-bucket h MSM: on a CUDA device (the reference: on
+    hardware), when the pk carries the shifted query at exactly this
+    prover's padded tier N; else the dense per-window form."""
+    from ..kernels.msm_sorted import shared_window_count
+
+    if torch.device(device).type != "cuda" or pk.h16_p128 is None:
+        return False
+    return pk.h16_p128.shape[0] == shared_window_count(p, 16) * N
+
+
+def _prove_device(curve, dev, pkd, Z_pad, N, n, W, cfg, w0, w1, Ks, h16, mark):
+    """The device part of B proofs: one batched h stage, then per proof the
+    witness and h plans, the three witness G1 MSMs as one query batch, the
+    h G1 MSM (shared-bucket over pkd["h16"] if h16, else dense), the G2
+    MSM and the dummy corrections. Returns (B, ...) device tensors: window
+    sums X, Y, Z in Montgomery limbs for the G1 queries (B, 3, w1, en),
+    the h query (B, 1, 1 or W, en) and the G2 query (B, 1, w1, en), and
+    the correction scalars (B, 3, nl), canonical."""
+    from ..kernels.msm_sorted import (_msm_from_plan, _msm_plan, _msm_plan_shared,
+                                      _msm_plan_split, shared_window_count)
 
     p = P.SCALAR_FIELDS[curve].p
     q = P.BASE_FIELDS[curve].p
     beta = g2_group(curve).tower.beta
     f = field_ops(p)
+    chunk = min(N, 1 << 15)
+    cfgH = _shared_h_cfg(cfg)
+    Wc = shared_window_count(p, 16)
 
-    h = _h_stage(curve, dev, z_pad[None])[0]
-    h_pad = torch.nn.functional.pad(h[: n - 1], (0, 0, 0, N - (n - 1)))
+    H = _h_stage(curve, dev, Z_pad)
+    H_pad = torch.nn.functional.pad(H[:, : n - 1], (0, 0, 0, N - (n - 1)))
+    del H
     mark("h_stage")
-    plan_d, plan_s = _msm_plan_split(w1, N, cfg, z_pad, w0, Ks)
-    plan_h = _msm_plan(W, N, cfg, h_pad)
-    mark("plans")
 
-    def z_msm(P128, b):
+    def z_msm(P128, plans, beta_):
         """Witness-scalar MSM over the split plan -> (Q, w1, en) sums."""
         parts = [
-            _msm_from_plan(q, wn, cfg, P128, plan, True, beta=b, mark=mark)[0]
-            for plan, wn in ((plan_d, w0), (plan_s, w1 - w0))
+            _msm_from_plan(q, wn, cfg, P128, plan, True, beta=beta_, mark=mark)[0]
+            for plan, wn in zip(plans, (w0, w1 - w0))
             if plan is not None
         ]
         return tuple(torch.cat([pt[i] for pt in parts], dim=1) for i in range(3))
 
-    g1 = z_msm(pkd["g1"], None)
-    out_h, _ = _msm_from_plan(q, W, cfg, pkd["h"], plan_h, True, mark=mark)
-    b2 = z_msm(pkd["b2"], beta)
-    chunk = min(N, 1 << 15)
-    corr = _corr_fast(f, pkd["corr"], z_pad, -(-N // chunk), chunk)
-    mark("corrections")
-    return g1, out_h, b2, corr
+    outs = []
+    for b in range(Z_pad.shape[0]):
+        plans = _msm_plan_split(w1, N, cfg, Z_pad[b], w0, Ks)
+        plan_h = _msm_plan_shared(Wc, N, cfgH, H_pad[b]) if h16 else _msm_plan(W, N, cfg, H_pad[b])
+        mark("plans")
+        g1 = z_msm(pkd["g1"], plans, None)
+        if h16:
+            out_h, _ = _msm_from_plan(q, 1, cfgH, pkd["h16"], plan_h, True, mark=mark)
+        else:
+            out_h, _ = _msm_from_plan(q, W, cfg, pkd["h"], plan_h, True, mark=mark)
+        b2 = z_msm(pkd["b2"], plans, beta)
+        corr = _corr_fast(f, pkd["corr"], Z_pad[b], -(-N // chunk), chunk)
+        mark("corrections")
+        outs.append((g1, out_h, b2, corr))
+
+    def stacked(j):
+        return tuple(torch.stack([o[j][i] for o in outs]) for i in range(3))
+
+    return stacked(0), stacked(1), stacked(2), torch.stack([o[3] for o in outs])
+
+
+def _fetch(tensors):
+    """Device tensors -> numpy arrays, in one device-to-host copy."""
+    flat = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
+    out, i = [], 0
+    for t in tensors:
+        out.append(flat[i : i + t.numel()].reshape(tuple(t.shape)))
+        i += t.numel()
+    return out
 
 
 def _witness_limbs(r1cs: R1CS, witness: Witness, p: int, nls: int) -> np.ndarray:
@@ -676,48 +838,72 @@ def _r1cs_device(r1cs: R1CS, n: int, device) -> R1CSDevice:
     return cache[key]
 
 
-def _prove_core_sorted(curve, pk, r1cs, z_limbs, m, n, r, s, device, mark):
-    """Sorted-MSM prove core: the device part (_prove_device), the native
-    host windows, one fetch of window sums and corrections, then the host
-    window combine, correction subtraction and A/B/C randomization.
-    Returns the final (A, B2, C) proof points."""
+def _prove_core_sorted_batch(curve, pk, r1cs, Z_list, m, n, rs_list, device, mark):
+    """Sorted-MSM prove core for B witnesses of one circuit: the device part
+    (_prove_device) for the whole batch, the native host windows, one
+    fetch of window sums and corrections, then per proof, on threads, the
+    host window combine, correction subtraction and A/B/C randomization
+    with that proof's (r, s) from rs_list. The window split holds for
+    every witness (per-window nonzero counts maxed over the batch).
+    Returns the B final (A, B2, C) proof-point triples."""
     from ..kernels.msm_sorted import _windows, default_config
 
     p = P.SCALAR_FIELDS[curve].p
+    B = len(Z_list)
     N = max(_msm_tier(m), _msm_tier(n - 1))
     cfg = default_config(N)
     need = cfg.M1 * cfg.R
     N = -(-N // need) * need
     W = _windows(p, cfg.c)
+    h16 = _use_h16(pk, p, N, device)
 
     nf, nf2 = _native_pair(curve)
-    z_np = np.asarray(z_limbs)
-    w0, w1, Ks, hw0, hw1 = _split_with_host(_window_nnz(z_np, W, cfg.c), W, cfg, N, nf is not None)
+    Z_np = [np.asarray(z) for z in Z_list]
+    nnz = _window_nnz_batch(Z_np, W, cfg.c)
+    w0, w1, Ks, hw0, hw1 = _split_with_host(nnz, W, cfg, N, nf is not None)
     dev = _r1cs_device(r1cs, n, device)
     pkd = pk.dev(device, N, m)
-    z_pad = torch.as_tensor(np.pad(z_np, ((0, N - m), (0, 0))).astype(np.int64), device=device)
+    Z_pad = torch.as_tensor(
+        np.stack([np.pad(z, ((0, N - m), (0, 0))) for z in Z_np]).astype(np.int64), device=device
+    )
     mark("host_prep")
-    g1w, wh, w2, corr = _prove_device(curve, dev, pkd, z_pad, N, n, W, cfg, w0, w1, Ks, mark)
+    g1w, wh, w2, corr = _prove_device(curve, dev, pkd, Z_pad, N, n, W, cfg, w0, w1, Ks, h16, mark)
 
-    host_g1 = host_g2 = None
+    # the host's sparse windows overlap the device's queue
+    hosts = [(None, None)] * B
     if hw1 > hw0:
-        host_g1, host_g2 = _host_sparse_windows(nf, nf2, pk, z_np, hw0, hw1, cfg.c)
-    g1w, wh, w2 = ([a.cpu().numpy() for a in t] for t in (g1w, wh, w2))
-    ca, cb, cl = limbs_to_ints(corr.cpu().numpy())
-    if nf is not None:
-        out = _finish_native(curve, pk, nf, nf2, g1w, wh, w2, (ca, cb, cl), w1, W,
-                             cfg, r, s, host_g1, host_g2, hw0)
+        hosts = [_host_sparse_windows(nf, nf2, pk, z, hw0, hw1, cfg.c) for z in Z_np]
+    got = _fetch([*g1w, *wh, *w2, corr])
+    g1w, wh, w2, corr = got[0:3], got[3:6], got[6:9], got[9]
+    wh_count = 1 if h16 else W
+
+    def finish(b):
+        ca, cb, cl = limbs_to_ints(corr[b])
+        r, s = rs_list[b]
+        g1w_b, wh_b, w2_b = ([a[b] for a in t] for t in (g1w, wh, w2))
+        if nf is not None:
+            return _finish_native(curve, pk, nf, nf2, g1w_b, wh_b, w2_b, (ca, cb, cl), w1, wh_count,
+                                  cfg, r, s, hosts[b][0], hosts[b][1], hw0)
+        return _finish_python(curve, pk, g1w_b, wh_b, w2_b, (ca, cb, cl), w1, wh_count, cfg, r, s)
+
+    if nf is not None and B > 1:
+        # the native tail runs in C with the GIL released (ctypes)
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=min(B, 8)) as ex:
+            outs = list(ex.map(finish, range(B)))
     else:
-        out = _finish_python(curve, pk, g1w, wh, w2, (ca, cb, cl), w1, W, cfg, r, s)
+        outs = [finish(b) for b in range(B)]
     mark("host_tail")
-    return out
+    return outs
 
 
 def _finish_native(curve, pk, nf, nf2, g1w, wh, w2, corrs, w1, W, cfg, r, s,
                    host_g1=None, host_g2=None, hw0=0):
     """Window sums + corrections -> final (A, B2, C) proof points, all host
     math in the native C backend. g1w/w2 hold (Q, w1, en) window sums per
-    coordinate (Q = 3 G1 queries a, b1, l / 1 G2 query), wh (1, W, en);
+    coordinate (Q = 3 G1 queries a, b1, l / 1 G2 query), wh (1, W, en)
+    (W = 1 for the shared-bucket h MSM);
     host_g1/host_g2 carry natively computed sparse windows [hw0, ...)."""
     p = P.SCALAR_FIELDS[curve].p
     q = P.BASE_FIELDS[curve].p
@@ -896,9 +1082,39 @@ def prove(r1cs: R1CS, pk: ProvingKey, witness: Witness, rng=None, device="cuda",
     mark = _Stages(timings, device)
     z_limbs = _witness_limbs(r1cs, witness, p, n_limbs(p))
     r, s = rand(), rand()
-    A, B2, C = _prove_core_sorted(
-        curve, pk, r1cs, z_limbs, z_limbs.shape[0], pk.domain_size, r, s, device, mark
+    (A, B2, C), = _prove_core_sorted_batch(
+        curve, pk, r1cs, [z_limbs], z_limbs.shape[0], pk.domain_size, [(r, s)], device, mark
     )
+    return _proof_json(r1cs, witness, curve, A, B2, C)
+
+
+def prove_batch(r1cs: R1CS, pk: ProvingKey, witnesses: Sequence[Witness], rng=None,
+                device="cuda", timings: Optional[dict] = None) -> List[Proof]:
+    """Proves B witnesses of one circuit in one batched pipeline: one upload
+    of the witnesses, one batched h stage (one mulacc_walk launch and one
+    stacked transform per NTT stage on a CUDA device), the MSMs proof by
+    proof, one fetch, and the host tails on threads. Equivalent to
+    [prove(r1cs, pk, w) for w in witnesses]: rng() draws r and s for each
+    proof in turn (r0, s0, r1, s1, ...), so proof b equals prove() of
+    witness b given the same r, s. `timings` as in prove(), summed over
+    the batch."""
+    curve = r1cs.curve
+    if pk.b2_p128 is None:
+        raise ValueError("this prover needs the packed G2 query (b2_p128)")
+    if not witnesses:
+        return []
+    p = P.SCALAR_FIELDS[curve].p
+    rand = rng or (lambda: secrets.randbelow(p))
+    mark = _Stages(timings, device)
+    Z_list = [_witness_limbs(r1cs, w, p, n_limbs(p)) for w in witnesses]
+    rs_list = [(rand(), rand()) for _ in witnesses]
+    triples = _prove_core_sorted_batch(
+        curve, pk, r1cs, Z_list, Z_list[0].shape[0], pk.domain_size, rs_list, device, mark
+    )
+    return [_proof_json(r1cs, w, curve, *t) for w, t in zip(witnesses, triples)]
+
+
+def _proof_json(r1cs, witness, curve, A, B2, C) -> Proof:
     return Proof(
         "g16",
         curve,
