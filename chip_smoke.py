@@ -37,7 +37,27 @@ Phases, each timed:
      same r, s byte for byte, the launch counts (set to 0 before the
      first batch) are above 0, and no plain version runs on the card;
      one more batch under torch.profiler gives the card's busy time
-  6. the kernels JSON line, the nvidia-smi line, and the result line.
+  6. GM17 path: the same sha256 circuit as a SAP (domain 2^16), setup
+     with a seeded rng, 3 proofs with distinct fixed r through
+     schemes/gm17.prove (the h stage on the NTT and emul kernels, the four
+     MSMs through groth16's MSM entry points) with their stage split, each
+     verified; a tampered proof (a <-> c) and a wrong public input are
+     rejected; the launch counts (set to 0 before setup) of the walk,
+     suffix, epilogue, NTT and emul kernels are above 0, and no plain
+     version runs on the card in the h stage or the MSMs; then every
+     kernel the GM17 prove launches against its plain version at that
+     prove's shapes, as in phase 3: the walks (mixed-unsafe, mixed-safe,
+     general), suffix and epilogue over all 32 windows of the c = 8 MSM
+     at the queries' 2^16 rows, over Fq and Fq2; the NTT at (2, 2^16)
+     and (1, 2^16) both ways; emul at the h stage's shapes and at the
+     queries' conversion to Montgomery form
+  7. the standalone point kernels mixed_add_lm (N = 2^16) and
+     accumulate_lm (16 buckets, 16 steps, 2^14 lanes), which no path
+     calls, against their plain versions from real curve points with
+     every edge case (P at infinity, P == Q, P == -Q, digit 0, digits >=
+     n_buckets, buckets hit several times); and the throughput probe: the
+     card's rate of 32-bit IMAD and of 8-limb CIOS products
+  8. the kernels JSON line, the nvidia-smi line, and the result line.
 
 Exits non-zero on any failure; with no CUDA device it raises before
 printing a result.
@@ -50,6 +70,8 @@ products) times
 products, low and high halves, plus 8 m = t0*n0), over the H100 SXM's
 32-bit integer multiply rate: 64 IMAD per SM per clock, half the float32
 FMA rate behind its published 67 TFLOP/s, i.e. 16.75e12/s at 700 W.
+The probe of phase 7 measures that rate; the constant stays the
+derivation, with the measured ratio beside it in PERF.md.
 Bytes: inputs read once and outputs written once, over 3.35 TB/s. Field
 elements cross every kernel boundary as int64 words of 16-bit limbs (128 B
 per element), point rows as int32 words of 16-bit limbs (64 B per Fq
@@ -80,6 +102,7 @@ SEED = 2024                    # inputs of the checks, setup randomness, r and s
 NPROOFS = 3
 BATCH = 16                     # witnesses per prove_batch, as bench.py
 NBATCHES = 2                   # timed batches after the warm-up
+GM17_PROOFS = 3
 # kernel -> (its library, a key of kernels/cuda.SOURCES; the TPU kernel it replaces)
 REPLACES = {
     "walk_mixed": ("zkt_msm", "zokrates_tpu/kernels/msm_sorted.py:140"),
@@ -90,7 +113,14 @@ REPLACES = {
     "ereduce_wide": ("zkt_field", "zokrates_tpu/kernels/pallas_field.py:751"),
     "ntt": ("zkt_ntt", "zokrates_tpu/kernels/ntt_pallas.py:40"),
     "mulacc_walk": ("zkt_mulacc", "zokrates_tpu/kernels/pallas_field.py:808"),
+    "mixed_add_lm": ("zkt_point", "zokrates_tpu/kernels/pallas_field.py:296"),
+    "accumulate_lm": ("zkt_point", "zokrates_tpu/kernels/pallas_field.py:404"),
 }
+# kernels no path of either package calls: checked against their plain
+# versions only, 0 launches on every path
+CHECKED_ONLY = ("mixed_add_lm", "accumulate_lm")
+# the kernels every GM17 prove launches (no matvec walk, no lazy reduction)
+GM17_KERNELS = ("walk_mixed", "walk_general", "suffix", "suffix_fold", "ntt", "emul")
 # the variant whose time stands for each kernel in the kernels line: the
 # one the main path launches on the most data (G1, the walks, suffix and
 # epilogue of the shared-bucket h MSM, the matvec's product and reduction
@@ -98,7 +128,8 @@ REPLACES = {
 MAIN_VARIANT = {"walk_mixed": ("Fq", "mixed-safe h16"), "walk_general": ("Fq", "general h16"),
                 "suffix": ("Fq", "fold=False h16"), "suffix_fold": ("Fq", "h16 MSM"),
                 "emul": ("Fr", "matvec"), "ereduce_wide": ("Fr", "matvec"),
-                "ntt": ("Fr", "forward x3"), "mulacc_walk": ("Fr", "B=16")}
+                "ntt": ("Fr", "forward x3"), "mulacc_walk": ("Fr", "B=16"),
+                "mixed_add_lm": ("Fq", "N=2^16"), "accumulate_lm": ("Fq", "16x16, 2^14 lanes")}
 
 
 def log(msg: str) -> None:
@@ -279,14 +310,16 @@ def _record(name, field, mode, shape, got, want, ms_k, ms_p, mults, nbytes):
     return rec
 
 
-def check_kernels(shapes, dev):
-    """Every kernel variant vs its plain version on `dev`, bit for bit.
-    Returns the per-kernel check records for the kernels JSON line."""
+def check_kernels(shapes, dev, tag: str = "", seed: int = SEED):
+    """Every kernel variant vs its plain version on `dev`, bit for bit, at
+    a path's shapes (main_path_shapes or gm17_shapes), `tag` appended to
+    the walk and suffix labels. Returns the per-kernel check records for
+    the kernels JSON line."""
     import torch
     from zokrates_tpu_torch.kernels import msm_sorted as ms
 
-    rng = random.Random(SEED)
-    nrng = np.random.default_rng(SEED)
+    rng = random.Random(seed)
+    nrng = np.random.default_rng(seed)
     records = {"walk_mixed": [], "walk_general": [], "suffix": [], "suffix_fold": []}
     for ext in (False, True):
         pool = Points(ext, rng)
@@ -294,11 +327,11 @@ def check_kernels(shapes, dev):
         fname = "Fq2" if ext else "Fq"
         fm = FQ2_MULS if ext else 1
         sh = shapes["fq2" if ext else "fq"]
-        variants = [(mode, safe, "", sh) for mode, safe in
+        variants = [(mode, safe, tag, sh) for mode, safe in
                     (("mixed", False), ("mixed", True), ("general", True))]
         if "h16" in sh:  # the shared-bucket h MSM's walks (safe, as the prove)
             variants += [("mixed", True, " h16", sh["h16"]), ("general", True, " h16", sh["h16"])]
-        for mode, safe, tag, shp in variants:
+        for mode, safe, vtag, shp in variants:
             K, L = shp["walk_" + mode]
             qrows, flags, qinf = walk_inputs(pool, K, L, mode, nrng)
             qd, fd = qrows.to(dev), flags.to(dev)
@@ -309,12 +342,12 @@ def check_kernels(shapes, dev):
             per_add = MIXED_MULS if mode == "mixed" else GENERAL_MULS
             mults = walk_adds(flags.numpy(), qinf) * per_add * fm
             nbytes = 4 * (qrows.numel() + flags.numel() + sum(t.numel() for t in out))
-            label = ("general" if mode == "general" else mode + ("-safe" if safe else "-unsafe")) + tag
+            label = ("general" if mode == "general" else mode + ("-safe" if safe else "-unsafe")) + vtag
             rec = _record("walk", fname, label, (K, L), out, ref, ms_k, ms_p, mults, nbytes)
             rec["collisions"] = int(out[1].sum())
             records["walk_" + mode].append(rec)
 
-        for tag, shp in [("", sh)] + ([(" h16", sh["h16"])] if "h16" in sh else []):
+        for stag, shp in [(tag, sh)] + ([(" h16", sh["h16"])] if "h16" in sh else []):
             Lb, M = shp["suffix"]
             ia = nrng.integers(0, pool.jac.shape[0], (Lb, M))
             ib = nrng.integers(0, pool.jac.shape[0], (Lb, M))
@@ -326,7 +359,7 @@ def check_kernels(shapes, dev):
             ms_k = cuda_ms(lambda: ms.suffix(A, B, q, beta))
             mults = suffix_adds(ia == pool.inf_row, ib == pool.inf_row) * GENERAL_MULS * fm
             nbytes = 4 * (A.numel() + B.numel() + out.numel())
-            records["suffix"].append(_record("suffix", fname, "fold=False" + tag, (Lb, M), (out,), (ref,),
+            records["suffix"].append(_record("suffix", fname, "fold=False" + stag, (Lb, M), (out,), (ref,),
                                              ms_k, ms_p, mults, nbytes))
 
         for label, (G, lw, L) in sh["fold"].items():
@@ -383,9 +416,12 @@ def fr_elems(shape, nrng: np.random.Generator, p: int):
     return torch.as_tensor(x)
 
 
-def check_field_kernels(fr, dev):
-    """emul, ereduce_wide and the NTT against their plain versions at the
-    h stage's and the corrections' shapes (fr: main_path_shapes' "fr")."""
+def check_field_kernels(fr, dev, seed: int = SEED + 2):
+    """emul, ereduce_wide and the NTT against their plain versions at a
+    path's shapes (fr: the "fr" entry of main_path_shapes or gm17_shapes):
+    emul cases (label, field "Fr" or "Fq", batch, elements, b: "shared"
+    (L, nl), "full" (B, L, nl) or "row" (stride 0)), ereduce_wide cases (label, batch, elements)
+    and the NTT's size with its cases (label, batch, inverse)."""
     import torch
     from zokrates_tpu_torch.fields import params as P
     from zokrates_tpu_torch.kernels import ntt_pallas as nk
@@ -393,25 +429,24 @@ def check_field_kernels(fr, dev):
     from zokrates_tpu_torch.kernels.ntt import domain_for_curve
 
     p = P.SCALAR_FIELDS["bn128"].p
-    nrng = np.random.default_rng(SEED + 2)
+    moduli = {"Fr": p, "Fq": P.BASE_FIELDS["bn128"].p}
+    nrng = np.random.default_rng(seed)
     records = {"emul": [], "ereduce_wide": [], "ntt": []}
-    nnz, m, n, N, C = fr["nnz"], fr["m"], fr["n"], fr["N"], fr["C"]
-    # (label, batch, elements, b: "shared" (L, nl), "full" (B, L, nl) or "row" (stride 0))
-    for label, B, L, kind in (("matvec", 1, nnz, "shared"), ("to_mont", 1, m, "row"),
-                              ("A*B", 1, n, "full"), ("corrections", 3, N, "shared")):
-        a = fr_elems((B, L), nrng, p).to(dev)
-        b = {"shared": lambda: fr_elems((L,), nrng, p),
-             "full": lambda: fr_elems((B, L), nrng, p),
-             "row": lambda: fr_elems((), nrng, p).expand(L, 16)}[kind]().to(dev)
-        out = pf.emul(p, a, b)
+    for label, fname, B, L, kind in fr["emul"]:
+        m = moduli[fname]
+        a = fr_elems((B, L), nrng, m).to(dev)
+        b = {"shared": lambda: fr_elems((L,), nrng, m),
+             "full": lambda: fr_elems((B, L), nrng, m),
+             "row": lambda: fr_elems((), nrng, m).expand(L, 16)}[kind]().to(dev)
+        out = pf.emul(m, a, b)
         torch.cuda.synchronize()
-        ref, ms_p = host_ms(lambda: pf.emul_plain(p, a, b))
-        ms_k = cuda_ms(lambda: pf.emul(p, a, b))
+        ref, ms_p = host_ms(lambda: pf.emul_plain(m, a, b))
+        ms_k = cuda_ms(lambda: pf.emul(m, a, b))
         b_elems = {"shared": L, "full": B * L, "row": 1}[kind]
         nbytes = ELEM_BYTES * (2 * B * L + b_elems)
-        records["emul"].append(_record("emul", "Fr", label, (B, L), (out,), (ref,), ms_k, ms_p,
+        records["emul"].append(_record("emul", fname, label, (B, L), (out,), (ref,), ms_k, ms_p,
                                        B * L, nbytes))
-    for label, B, L in (("matvec", 1, 3 * n), ("corrections", 3, C)):
+    for label, B, L in fr["ereduce_wide"]:
         t = torch.as_tensor(nrng.integers(0, 1 << 31, (B, L, 16), dtype=np.int64)).to(dev)
         out = pf.ereduce_wide(p, t)
         torch.cuda.synchronize()
@@ -419,8 +454,9 @@ def check_field_kernels(fr, dev):
         ms_k = cuda_ms(lambda: pf.ereduce_wide(p, t))
         records["ereduce_wide"].append(_record("ereduce_wide", "Fr", label, (B, L), (out,), (ref,),
                                                ms_k, ms_p, 2 * B * L, 2 * ELEM_BYTES * B * L))
+    n, ntt_cases = fr["ntt"]
     dom = domain_for_curve("bn128", n)
-    for label, B, inverse in (("forward x3", 3, False), ("inverse x3", 3, True), ("inverse x1", 1, True)):
+    for label, B, inverse in ntt_cases:
         x = fr_elems((B, n), nrng, p).to(dev)
         out = nk.fft_core(dom, x, inverse)
         torch.cuda.synchronize()
@@ -508,6 +544,155 @@ def check_msm_oracle(dev, N: int = 8192):
             raise AssertionError("sorted MSM disagrees with the Python-int oracle")
 
 
+def check_point_kernels(dev):
+    """mixed_add_lm and accumulate_lm against their plain versions, bit for
+    bit, from real G1 points k_j*G and their negatives. mixed_add_lm: P at
+    infinity, P == Q, P == -Q and other pairs; accumulate_lm: digits 0 and
+    >= n_buckets (up to 0xFFFFFFFF), buckets hit several times, repeated
+    (doubling) and negated (cancelling) points. Bounds: 11 products a mixed
+    add (a doubling too: 4 before its branch, 7 in it), none where P, the
+    bucket, is at infinity; bytes 64 per coordinate row, 4 per digit."""
+    import torch
+    from zokrates_tpu_torch.ec.curve import g1_group
+    from zokrates_tpu_torch.fields.jfield import field_ops
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+
+    N, R, n_buckets, chunk_len = 1 << 16, 1 << 14, 16, 16
+    grp = g1_group("bn128")
+    q = grp.q
+    f = field_ops(q)
+    rng = random.Random(SEED + 4)
+    nrng = np.random.default_rng(SEED + 4)
+    npts = 16
+    pts = [grp.generator() * rng.randrange(1, grp.r) for _ in range(npts)]
+    pool = pts + [-pt for pt in pts]  # pool[j + npts] = -pool[j]
+    PX = f.encode([pt.x for pt in pool], device=dev)
+    PY = f.encode([pt.y for pt in pool], device=dev)
+
+    def lm(t):  # (..., L, nl) int64 -> (..., nl, L) int32 limb-major rows
+        return t.transpose(-1, -2).to(torch.int32).contiguous()
+
+    # mixed_add_lm: kind 0 any P, 1 P at infinity, 2 P == Q, 3 P == -Q
+    qi = nrng.integers(0, 2 * npts, N)
+    kind = nrng.choice(4, N, p=[0.8, 0.05, 0.075, 0.075])
+    pi = np.where(kind == 2, qi, np.where(kind == 3, (qi + npts) % (2 * npts), nrng.integers(0, 2 * npts, N)))
+    X, Y, Z = [], [], []
+    for i in range(N):
+        if kind[i] == 1:
+            X.append(rng.randrange(q))
+            Y.append(rng.randrange(q))
+            Z.append(0)
+            continue
+        pt, z = pool[pi[i]], rng.randrange(1, q)
+        X.append(pt.x * z * z % q)
+        Y.append(pt.y * z * z % q * z % q)
+        Z.append(z)
+    qt = torch.as_tensor(qi, device=dev)
+    args = (lm(f.encode(X, device=dev)), lm(f.encode(Y, device=dev)), lm(f.encode(Z, device=dev)),
+            lm(PX[qt]), lm(PY[qt]))
+    out = pf.mixed_add_lm(q, *args)
+    torch.cuda.synchronize()
+    ref, ms_p = host_ms(lambda: pf.mixed_add_lm_plain(q, *args))
+    ms_k = cuda_ms(lambda: pf.mixed_add_lm(q, *args))
+    same_x = pi % npts == qi % npts
+    cases = {"P at infinity": int(np.count_nonzero(kind == 1)),
+             "P == Q": int(np.count_nonzero((kind != 1) & (pi == qi))),
+             "P == -Q": int(np.count_nonzero((kind != 1) & same_x & (pi != qi))),
+             "Z = 0 out": int((out[2] == 0).all(0).sum())}
+    log(f"  mixed_add_lm cases: {cases}")
+    if min(cases.values()) == 0 or cases["Z = 0 out"] != cases["P == -Q"]:
+        raise AssertionError(f"mixed_add_lm inputs miss an edge case: {cases}")
+    rec_m = _record("mixed_add_lm", "Fq", "N=2^16", (16, N), out, ref, ms_k, ms_p,
+                    MIXED_MULS * int(np.count_nonzero(kind != 1)), 8 * 64 * N)
+    rec_m["cases"] = cases
+    del args, out, ref
+
+    # accumulate_lm
+    digits = nrng.integers(0, n_buckets + 4, (chunk_len, R)).astype(np.int64)
+    qidx = nrng.integers(0, 2 * npts, (chunk_len, R))
+    digits[:4, 0], qidx[:4, 0] = 1, [0, 0, npts, 0]             # P, P (doubles), -P, P
+    digits[:2, 1], qidx[:2, 1] = 2, [3, 3 + npts]               # P, -P (cancels)
+    digits[:, 2] = [0, n_buckets, 0x7FFFFFFF, 0xFFFFFFFF] * (chunk_len // 4)  # touch nothing
+    cnt = np.zeros((R, n_buckets, npts), np.int16)  # bucket = sum_j cnt_j * k_j * G
+    lanes = np.arange(R)
+    mults, stats = 0, {"digit 0": int(np.count_nonzero(digits == 0)),
+                       "digit >= n_buckets": int(np.count_nonzero(digits >= n_buckets)),
+                       "doublings": 0, "cancels": 0}
+    for t in range(chunk_len):
+        d = digits[t]
+        hit = (d >= 1) & (d < n_buckets)
+        L, b = lanes[hit], d[hit]
+        j, sgn = qidx[t, hit] % npts, np.where(qidx[t, hit] < npts, 1, -1)
+        before = cnt[L, b]
+        single = np.abs(before).sum(-1) == 1
+        stats["doublings"] += int(np.count_nonzero(single & (before[np.arange(len(L)), j] == sgn)))
+        stats["cancels"] += int(np.count_nonzero(single & (before[np.arange(len(L)), j] == -sgn)))
+        mults += MIXED_MULS * int(np.count_nonzero(before.any(-1)))
+        cnt[L, b, j] += sgn.astype(np.int16)
+    stats["buckets hit twice or more"] = int(np.count_nonzero(
+        np.stack([(digits == b).sum(0) for b in range(1, n_buckets)]) >= 2))
+    log(f"  accumulate_lm cases: {stats}")
+    if min(stats.values()) == 0:
+        raise AssertionError(f"accumulate_lm inputs miss an edge case: {stats}")
+    qt = torch.as_tensor(qidx, device=dev)
+    dg = torch.as_tensor(digits.astype(np.uint32).view(np.int32), device=dev)
+    aq = (dg, lm(PX[qt]).reshape(chunk_len * 16, R), lm(PY[qt]).reshape(chunk_len * 16, R))
+    out = pf.accumulate_lm(q, *aq, n_buckets=n_buckets)
+    torch.cuda.synchronize()
+    ref, ms_p = host_ms(lambda: pf.accumulate_lm_plain(q, *aq, n_buckets=n_buckets))
+    ms_k = cuda_ms(lambda: pf.accumulate_lm(q, *aq, n_buckets=n_buckets))
+    nbytes = 4 * chunk_len * R + 2 * 64 * chunk_len * R + 3 * 64 * n_buckets * R
+    rec_a = _record("accumulate_lm", "Fq", "16x16, 2^14 lanes", (n_buckets, chunk_len, R), out, ref,
+                    ms_k, ms_p, mults, nbytes)
+    rec_a["cases"] = stats
+    return {"mixed_add_lm": [rec_m], "accumulate_lm": [rec_a]}
+
+
+def probe_rates(dev):
+    """The card's rate of 32-bit IMAD and of 8-limb CIOS products (field.cuh's
+    mul), from saturating kernels of their own (csrc/probe.cu): 8 blocks of
+    256 threads per SM, CUDA events around 3 launches after a warm-up.
+    Returns the rates and their ratios to INT32_MUL_RATE (a CIOS product
+    counted as MULS_PER_MONT multiplies)."""
+    import torch
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.kernels import cuda
+
+    lib = cuda.load()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = 8 * sms
+    threads = 256 * blocks
+    out = torch.empty(threads, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    pl, one, n0, _ = cuda.field_params(P.BASE_FIELDS["bn128"].p, None)
+
+    def seconds(launch, reps=3):
+        cuda.check(launch(), "probe")
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(reps):
+            cuda.check(launch(), "probe")
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / reps / 1e3
+
+    imad_iters, mont_iters = 8192, 512
+    t_imad = seconds(lambda: lib.zkt_probe_imad(out.data_ptr(), blocks, imad_iters, 0x9E3779B9, stream))
+    t_mont = seconds(lambda: lib.zkt_probe_mont(out.data_ptr(), blocks, mont_iters, pl, one, n0, stream))
+    imad = threads * imad_iters * 128 / t_imad
+    cios = threads * mont_iters * 4 / t_mont
+    res = {"imad_per_s": imad, "imad_ratio": imad / INT32_MUL_RATE, "imad_ms": t_imad * 1e3,
+           "cios_per_s": cios, "cios_mults_per_s": cios * MULS_PER_MONT,
+           "cios_ratio": cios * MULS_PER_MONT / INT32_MUL_RATE, "cios_ms": t_mont * 1e3,
+           "sms": sms, "blocks": blocks}
+    log(f"  32-bit IMAD: {imad:.4e}/s ({res['imad_ratio']:.4f} x the bound's {INT32_MUL_RATE:.4e}); "
+        f"CIOS products: {cios:.4e}/s = {res['cios_mults_per_s']:.4e} multiplies/s at {MULS_PER_MONT} "
+        f"a product ({res['cios_ratio']:.4f} x); {sms} SMs, {blocks} blocks of 256")
+    print(json.dumps({"probe": res}), flush=True)
+    return res
+
+
 # ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
@@ -548,6 +733,21 @@ def batch_witnesses(prog):
     return out
 
 
+def walk_shapes(Wn: int, Ks: int, cfg):
+    """(K, L) of the mixed walk, the merge walk and the suffix walk of a
+    sorted MSM over Wn windows of Ks sorted positions each."""
+    from zokrates_tpu_torch.kernels.msm_sorted import _plan_shapes
+
+    s = _plan_shapes(Ks, Wn, cfg)
+    return {"walk_mixed": (s["K1"], Wn * cfg.M1), "walk_general": (s["cap1"] // cfg.lw2, Wn * cfg.lw2),
+            "suffix": (s["L4"], Wn * cfg.lw2)}
+
+
+def fold_shape(Wn: int, Ks: int, cfg):
+    """(G, lw, L) of the suffix epilogue of the same MSM."""
+    return (Wn, cfg.lw2, walk_shapes(Wn, Ks, cfg)["suffix"][0])
+
+
 def main_path_shapes(r1cs, wit):
     """The kernels' shapes in this circuit's prove: G1 at the h MSM, both in
     the shared-bucket form the prove takes (one window of Wc*N slots,
@@ -557,8 +757,7 @@ def main_path_shapes(r1cs, wit):
     the h stage's and the corrections' sizes."""
     from zokrates_tpu_torch.fields import params as P
     from zokrates_tpu_torch.fields.limbs import n_limbs
-    from zokrates_tpu_torch.kernels.msm_sorted import (_plan_shapes, _windows, default_config,
-                                                       shared_window_count)
+    from zokrates_tpu_torch.kernels.msm_sorted import _windows, default_config, shared_window_count
     from zokrates_tpu_torch.native import available
     from zokrates_tpu_torch.schemes import groth16 as g
 
@@ -571,33 +770,63 @@ def main_path_shapes(r1cs, wit):
     z = g._witness_limbs(r1cs, wit, p, n_limbs(p))
     w0, w1, Ks, hw0, hw1 = g._split_with_host(g._window_nnz_batch([z], W, cfg.c), W, cfg, N, available())
 
-    def of(Wn, Ks_, c=cfg):
-        s = _plan_shapes(Ks_, Wn, c)
-        return {"walk_mixed": (s["K1"], Wn * c.M1),
-                "walk_general": (s["cap1"] // c.lw2, Wn * c.lw2),
-                "suffix": (s["L4"], Wn * c.lw2)}
-
-    def fold(Wn, Ks_, c=cfg):  # (G, lw, L) of the epilogue
-        return (Wn, c.lw2, _plan_shapes(Ks_, Wn, c)["L4"])
-
     g2_W, g2_Ks = (w0, N) if w0 else (w1 - w0, Ks)
-    fq, fq2 = of(W, N), of(g2_W, g2_Ks)
+    fq, fq2 = walk_shapes(W, N, cfg), walk_shapes(g2_W, g2_Ks, cfg)
     cfgH, Wc = g._shared_h_cfg(cfg), shared_window_count(p, 16)
-    fq["h16"] = of(1, Wc * N, cfgH)
-    fq["fold"] = {"h16 MSM": fold(1, Wc * N, cfgH), "h MSM": fold(W, N),
-                  "a/b1/l MSM": fold(3 * g2_W, g2_Ks)}
-    fq2["fold"] = {"b2 MSM": fold(g2_W, g2_Ks)}
+    fq["h16"] = walk_shapes(1, Wc * N, cfgH)
+    fq["fold"] = {"h16 MSM": fold_shape(1, Wc * N, cfgH), "h MSM": fold_shape(W, N, cfg),
+                  "a/b1/l MSM": fold_shape(3 * g2_W, g2_Ks, cfg)}
+    fq2["fold"] = {"b2 MSM": fold_shape(g2_W, g2_Ks, cfg)}
     nnz = sum(len(row) for mat in (r1cs.A, r1cs.B, r1cs.C) for row in mat) + r1cs.num_instance
     chunk = min(N, 1 << 15)
-    fr = dict(nnz=nnz, m=m, n=n, N=N, C=-(-N // chunk))
+    fr = {"emul": [("matvec", "Fr", 1, nnz, "shared"), ("to_mont", "Fr", 1, m, "row"),
+                   ("A*B", "Fr", 1, n, "full"), ("corrections", "Fr", 3, N, "shared")],
+          "ereduce_wide": [("matvec", 1, 3 * n), ("corrections", 3, -(-N // chunk))],
+          "ntt": (n, [("forward x3", 3, False), ("inverse x3", 3, True), ("inverse x1", 1, True)])}
     info = dict(N=N, n=n, W=W, c=cfg.c, M1=cfg.M1, lw2=cfg.lw2, split=(w0, w1, Ks, hw0, hw1), nnz=nnz)
     return {"fq": fq, "fq2": fq2, "fr": fr}, info
+
+
+def gm17_shapes(pk, dev):
+    """The kernels' shapes in a GM17 prove with this pk: the dense sorted
+    MSM over all windows at the G1 queries' padded size (a, c and h share
+    one) and at the G2 query's; the h stage's emul and NTT calls at the
+    domain size n (U, W to Montgomery form, the two inverse transforms'
+    n^-1, the coset tables, U^2, the 1/t, back from Montgomery form and
+    two_r * u, the last four over one row); and the queries' conversion
+    to Montgomery form over Fq when the pk first packs them."""
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.kernels.msm_sorted import _windows, default_config
+
+    r = P.SCALAR_FIELDS["bn128"].p
+    pkd = pk.dev(dev)
+    n = pk.domain_size
+
+    def of(N, fold_label):
+        cfg = default_config(N)
+        full = -(-N // (cfg.M1 * cfg.R)) * (cfg.M1 * cfg.R)  # groth16._sorted_inputs
+        W = _windows(r, cfg.c)
+        return dict(walk_shapes(W, full, cfg), fold={fold_label: fold_shape(W, full, cfg)})
+
+    sizes = {pkd[k].shape[0] for k in ("a", "c", "h")}
+    if len(sizes) != 1:
+        raise AssertionError(f"the GM17 G1 queries have sizes {sizes}; the checks cover one")
+    N1, N2 = sizes.pop(), pkd["bx"].shape[0]
+    fr = {"emul": [("gm17 U,W to_mont", "Fr", 1, 2 * n, "row"), ("gm17 ninv x2", "Fr", 2, n, "row"),
+                   ("gm17 coset x2", "Fr", 2, n, "shared"), ("gm17 U^2", "Fr", 1, n, "shared"),
+                   ("gm17 1/t", "Fr", 1, n, "row"),
+                   ("gm17 G1 query", "Fq", 1, N1, "row"), ("gm17 G2 query", "Fq", 1, 4 * N2, "row")],
+          "ereduce_wide": [],
+          "ntt": (n, [("gm17 inverse x2", 2, True), ("gm17 forward x2", 2, False),
+                      ("gm17 inverse x1", 1, True)])}
+    return {"fq": of(N1, "gm17 a/c/h MSM"), "fq2": of(N2, "gm17 b MSM"), "fr": fr}
 
 
 class PlainGuard:
     """While active, counts the calls of jfield's mul and reduce_wide, of
     mulacc_walk_plain and of the COO matvec on CUDA tensors made inside
-    groth16._h_stage, groth16._corr_fast or msm_sorted._msm_from_plan. The
+    groth16._h_stage, groth16._corr_fast, gm17._h_stage or
+    msm_sorted._msm_from_plan. The
     plain NTT stage loop, the plain suffix epilogue and the plain
     elementwise ops all come down to the first two, so a count of 0 shows
     that those stages ran on the kernels alone, and that the h stage took
@@ -606,14 +835,14 @@ class PlainGuard:
     def __init__(self):
         from zokrates_tpu_torch.fields import jfield
         from zokrates_tpu_torch.kernels import msm_sorted, pallas_field
-        from zokrates_tpu_torch.schemes import groth16
+        from zokrates_tpu_torch.schemes import gm17, groth16
 
         self.depth = 0
         self.calls = {}
         self.patches = [(jfield.FieldOps, "mul", self._plain), (jfield.FieldOps, "reduce_wide", self._plain),
                         (pallas_field, "mulacc_walk_plain", self._plain), (groth16, "_matvec_coo", self._plain),
                         (groth16, "_h_stage", self._stage), (groth16, "_corr_fast", self._stage),
-                        (msm_sorted, "_msm_from_plan", self._stage)]
+                        (msm_sorted, "_msm_from_plan", self._stage), (gm17, "_h_stage", self._stage)]
         self.saved = []
 
     def _plain(self, name, fn):
@@ -710,7 +939,7 @@ def check_launches(launches, runs: int, path: str):
     """Every kernel launched; the matvec walk at least once a prove call;
     each suffix launch followed by its epilogue."""
     for name in REPLACES:
-        if launches.get(name, 0) <= 0:
+        if name not in CHECKED_ONLY and launches.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} was not launched on {path}: {launches}")
     if launches["mulacc_walk"] < runs:
         raise AssertionError(f"mulacc_walk launched {launches['mulacc_walk']} times in {runs} prove calls")
@@ -860,6 +1089,77 @@ def profile_batch(r1cs, pk, wits, dev, rs):
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
+def run_gm17_path(r1cs, wit, dev, smi):
+    """GM17 on sha256: setup with a seeded rng, GM17_PROOFS proofs with
+    distinct fixed r and their stage split, with the launch counts set to 0
+    just before setup and read after the last proof; each proof verifies,
+    a tampered proof (a <-> c) and a wrong public input do not, and no
+    plain version runs on the card in the h stage or the MSMs. Returns the
+    launch counts and the proving key."""
+    import torch
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.kernels import msm_sorted, ntt_pallas, pallas_field
+    from zokrates_tpu_torch.schemes import gm17
+    from zokrates_tpu_torch.schemes.types import Proof, fr_to_json
+
+    p = P.SCALAR_FIELDS["bn128"].p
+    rng = random.Random(SEED + 5)
+    for mod in (msm_sorted, pallas_field, ntt_pallas):
+        mod.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    pk, vk = gm17.setup(r1cs, rng=lambda: rng.randrange(1, p), device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    log(f"  setup: {setup_s:.2f} s (SAP of {len(pk.sap_U)} rows, domain {pk.domain_size}, "
+        f"{len(pk.a_query)} variables, {len(vk.data['query'])} instance)")
+
+    proofs, walls, splits = [], [], []
+    with PlainGuard() as guard:
+        for i in range(GM17_PROOFS):
+            r = (SEED + 3000 + i) % p
+            timings = {}
+            t0 = time.perf_counter()
+            proofs.append(gm17.prove(r1cs, pk, wit, rng=lambda: r, device=dev, timings=timings))
+            walls.append(time.perf_counter() - t0)
+            splits.append(timings)
+            log(f"  prove {i}: {walls[-1] * 1e3:.1f} ms  "
+                + "  ".join(f"{k}={v * 1e3:.1f}ms" for k, v in timings.items()))
+    launches = launch_counts()
+    log(f"  plain versions on the card in the GM17 h stage and MSMs: {guard.calls or 0}")
+    if guard.calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors on the GM17 path: {guard.calls}")
+    missing = [k for k in GM17_KERNELS if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels {missing} were not launched on the GM17 path: {launches}")
+    log(f"  launches over setup and {GM17_PROOFS} proofs: {launches}")
+
+    for i, proof in enumerate(proofs):
+        t0 = time.perf_counter()
+        ok = gm17.verify(vk, proof)
+        log(f"  verify {i}: {ok} ({time.perf_counter() - t0:.2f} s)")
+        if not ok:
+            raise AssertionError(f"GM17 proof {i} failed to verify")
+    if len({json.dumps(pr.points, sort_keys=True) for pr in proofs}) != len(proofs):
+        raise AssertionError("GM17 proofs with distinct r are not distinct")
+    tampered = Proof.from_json(proofs[0].to_json())
+    tampered.points["a"], tampered.points["c"] = tampered.points["c"], tampered.points["a"]
+    wrong = Proof.from_json(proofs[0].to_json())
+    if not wrong.inputs:
+        raise AssertionError("the circuit has no public input to alter")
+    wrong.inputs[0] = fr_to_json((int(wrong.inputs[0], 16) + 1) % p, "bn128")
+    for name, bad in (("tampered (a <-> c)", tampered), ("wrong public input", wrong)):
+        ok = gm17.verify(vk, bad)
+        log(f"  verify {name}: {ok}")
+        if ok:
+            raise AssertionError(f"a GM17 proof with a {name} verified")
+
+    steady = walls[1:]  # proof 0 carries the query packing and uploads
+    split = {k: sum(t.get(k, 0.0) for t in splits[1:]) / len(steady) * 1e3 for k in splits[-1]}
+    log(f"  GM17 sha256 steady state: {sum(steady) / len(steady) * 1e3:.1f} ms/proof over proofs "
+        f"1..{len(walls) - 1} ({smi}): " + "  ".join(f"{k}={v:.1f}ms" for k, v in split.items()))
+    return launches, pk
+
+
 def main():
     import torch
 
@@ -923,6 +1223,24 @@ def main():
     log(f"  {len(wits)} witnesses by the port's interpreter: {time.perf_counter() - t0:.1f} s")
     launches_batch = run_batch_path(r1cs, pk, vk, wits, dev, smi)
 
+    log("== GM17 path: setup, prove, verify (sha256 as a SAP, 2^16)")
+    launches_gm17, gm17_pk = run_gm17_path(r1cs, wit, dev, smi)
+
+    log("== GM17 kernel checks (kernel vs plain version at the GM17 prove's shapes, bit-equal)")
+    t0 = time.perf_counter()
+    gshapes = gm17_shapes(gm17_pk, dev)
+    for got in (check_kernels(gshapes, dev, " gm17", SEED + 6),
+                check_field_kernels(gshapes["fr"], dev, SEED + 7)):
+        for name, recs in got.items():
+            records[name] += recs
+    log(f"  checks: {time.perf_counter() - t0:.1f} s")
+
+    log("== point kernels (no path calls them) and the throughput probe")
+    t0 = time.perf_counter()
+    records.update(check_point_kernels(dev))
+    probe_rates(dev)
+    log(f"  checks: {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     for name, recs in records.items():
         head = next(r for r in recs if (r["field"], r["mode"]) == MAIN_VARIANT[name])
@@ -932,6 +1250,7 @@ def main():
             "replaces": replaces,
             "launches": launches.get(name, 0),
             "launches_batch": launches_batch.get(name, 0),
+            "launches_gm17": launches_gm17.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None,

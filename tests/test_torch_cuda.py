@@ -1,8 +1,9 @@
 """The port's CUDA kernels (zokrates_tpu_torch/csrc/: msm_sorted.cu's walk,
 suffix and suffix epilogue, field_elementwise.cu's emul and ereduce_wide,
-ntt.cu's transform passes, mulacc.cu's matvec walk) against their plain
-PyTorch versions, on the card; and the shared-bucket sorted MSM on the
-card against the Python-int oracle.
+ntt.cu's transform passes, mulacc.cu's matvec walk, point_elementwise.cu's
+mixed_add_lm and accumulate_lm) against their plain PyTorch versions, on
+the card; the shared-bucket sorted MSM on the card against the Python-int
+oracle; and GM17 setup -> prove -> verify on a toy circuit on the card.
 
 Marked `cuda`: every test skips where torch.cuda is unavailable (this is
 decided in a fixture, never at import). On a machine with an NVIDIA GPU
@@ -19,7 +20,9 @@ canonical field elements and lazy sums near 2^31 from seeded numpy; the
 NTT at 2^10 (one pass), the prove's 2^15 and 2^16 (two) and 2^21 (three),
 batches of 1 and 3; the epilogue also at the shared-bucket h MSM's shape
 (one window of 1024 lanes); the matvec walk with runs that end at row
-changes and at lane ends. Tolerance: bit equality of every output limb.
+changes and at lane ends; the point kernels with P at infinity, P == Q,
+P == -Q, digits 0 and >= n_buckets and buckets hit several times.
+Tolerance: bit equality of every output limb.
 """
 
 import random
@@ -253,3 +256,119 @@ def test_shared_bucket_msm_on_card(dev):
     want = g1_group("bn128").generator() * (sum(k * s for k, s in zip(ks, sc)) % R_MOD)
     zi = pow(jz, -1, Q)
     assert (jx * zi * zi % Q, jy * zi ** 3 % Q) == (want.x, want.y)
+
+
+# ---------------------------------------------------------------------------
+# the standalone point kernels, and GM17 on the card
+# ---------------------------------------------------------------------------
+
+
+def _g1_pool(seed, n=4):
+    """Affine G1 rows (2n, 32) of n points and their negatives, int64
+    Montgomery limbs [x | y]: row j + n is -row j."""
+    rng = random.Random(seed)
+    grp = g1_group("bn128")
+    pts = [grp.generator() * rng.randrange(1, grp.r) for _ in range(n)]
+    pts += [-p for p in pts]
+    f = field_ops(Q)
+    return torch.cat([f.encode([p.x for p in pts]), f.encode([p.y for p in pts])], 1), rng
+
+
+def test_mixed_add_lm_kernel_equals_plain(dev):
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+
+    pool, rng = _g1_pool(16)
+    n, N = pool.shape[0] // 2, 512
+    nrng = np.random.default_rng(17)
+    qi = nrng.integers(0, 2 * n, N)
+    pi = nrng.integers(0, 2 * n, N)
+    pi[0::4] = qi[0::4]                    # P == Q
+    pi[1::4] = (qi[1::4] + n) % (2 * n)    # P == -Q
+    f = field_ops(Q)
+    z = f.encode([rng.randrange(1, Q) for _ in range(N)])
+    z[2::8] = 0                            # P at infinity
+    z2 = f.mul(z, z)
+    P = (f.mul(pool[pi, :16], z2), f.mul(pool[pi, 16:], f.mul(z2, z)), z)
+    args = [t.T.to(torch.int32).contiguous().to(dev) for t in (*P, pool[qi, :16], pool[qi, 16:])]
+    before = pf.LAUNCHES["mixed_add_lm"]
+    got = pf.mixed_add_lm(Q, *args)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES["mixed_add_lm"] == before + 1
+    want = pf.mixed_add_lm_plain(Q, *args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    cancel = (pi % n == qi % n) & (pi != qi) & ~f.is_zero(z).numpy()
+    assert torch.equal((got[2] == 0).all(0).cpu(), torch.as_tensor(cancel)) and cancel.any()
+
+
+def test_accumulate_lm_kernel_equals_plain(dev):
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+
+    pool, _ = _g1_pool(18)
+    n = pool.shape[0] // 2
+    nb, chunk_len, R = 16, 8, 512
+    nrng = np.random.default_rng(19)
+    digits = nrng.integers(0, nb + 3, (chunk_len, R)).astype(np.int64)
+    qi = nrng.integers(0, 2 * n, (chunk_len, R))
+    digits[:3, 0], qi[:3, 0] = 5, [1, 1, 1 + n]          # P, P (doubles), -P
+    digits[:2, 1], qi[:2, 1] = 7, [2, 2 + n]             # P, -P (cancels)
+    digits[:, 2] = [0, nb, 0x7FFFFFFF, 0xFFFFFFFF] * 2   # touch nothing
+    qt = torch.as_tensor(qi)
+
+    def rows(c):  # (chunk_len, R, 16) -> (chunk_len * 16, R) int32
+        return c.permute(0, 2, 1).reshape(chunk_len * 16, R).to(torch.int32).contiguous().to(dev)
+
+    args = (torch.as_tensor(digits.astype(np.uint32).view(np.int32)).to(dev),
+            rows(pool[qt][..., :16]), rows(pool[qt][..., 16:]))
+    before = pf.LAUNCHES["accumulate_lm"]
+    got = pf.accumulate_lm(Q, *args, n_buckets=nb)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES["accumulate_lm"] == before + 1
+    want = pf.accumulate_lm_plain(Q, *args, n_buckets=nb)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[2][0] == 0).all() and (got[2][:, :, 2] == 0).all()   # untouched buckets
+    assert (got[2][7, :, 1] == 0).all()                             # cancelled
+
+
+def _toy_r1cs():
+    """x_{i+1} = x_i^2 + y for 20 steps, out = x_20: instance [one, y,
+    out], witness [x_0, ..., x_20] (dense index = IR variable), as a port
+    R1CS and the witness of x_0 = 3, y = 7."""
+    from zokrates_tpu_torch.ir.r1cs import R1CS
+    from zokrates_tpu_torch.ir.witness import Witness
+
+    p = R_MOD
+    y, out, x = 1, 2, [3 + i for i in range(21)]
+    A = [[(x[i], 1)] for i in range(20)] + [[(x[20], 1)]]
+    B = [[(x[i], 1)] for i in range(20)] + [[(0, 1)]]
+    C = [[(x[i + 1], 1), (y, p - 1)] for i in range(20)] + [[(out, 1)]]
+    vals = {y: 7, x[0]: 3}
+    for i in range(20):
+        vals[x[i + 1]] = (vals[x[i]] ** 2 + 7) % p
+    vals[out] = vals[x[20]]
+    r1cs = R1CS("bn128", 3, 21, A, B, C, {v: v for v in range(1, 24)})
+    return r1cs, Witness(vals)
+
+
+def test_gm17_prove_verify_on_card(dev):
+    """GM17 setup -> prove -> verify on the toy circuit with the card's
+    kernels, the same proof as on the CPU, and a forgery rejected."""
+    import json
+
+    from zokrates_tpu_torch.kernels import ntt_pallas as nk
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+    from zokrates_tpu_torch.schemes import gm17
+
+    r1cs, wit = _toy_r1cs()
+    draws = iter([random.Random(20).randrange(1, R_MOD) for _ in range(4)])
+    pk, vk = gm17.setup(r1cs, rng=lambda: next(draws), device=dev)
+    before = (ms.LAUNCHES["walk_mixed"], nk.LAUNCHES["ntt"], pf.LAUNCHES["emul"])
+    proof = gm17.prove(r1cs, pk, wit, rng=lambda: 12345, device=dev)
+    assert all(a > b for a, b in zip((ms.LAUNCHES["walk_mixed"], nk.LAUNCHES["ntt"], pf.LAUNCHES["emul"]),
+                                     before))
+    assert gm17.verify(vk, proof)
+    on_cpu = gm17.prove(r1cs, pk, wit, rng=lambda: 12345, device="cpu")
+    assert json.dumps(proof.to_json()) == json.dumps(on_cpu.to_json())
+    proof.points["a"], proof.points["c"] = proof.points["c"], proof.points["a"]
+    assert not gm17.verify(vk, proof)

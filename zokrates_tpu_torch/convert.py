@@ -16,6 +16,7 @@ import numpy as np
 from .ec.curve import PointG1, PointG2, g1_group, g2_group
 from .ec.tower import Fq2
 from .ir.r1cs import R1CS
+from .schemes.gm17 import ProvingKey as GM17ProvingKey
 from .schemes.groth16 import ProvingKey
 from .schemes.types import VerificationKey
 
@@ -61,6 +62,43 @@ def proving_key(curve: str, domain_size: int, num_instance: int,
     kw.update({k: g1_point(curve, points[k]) for k in PK_G1})
     kw.update({k: g2_point(curve, points[k]) for k in PK_G2})
     return ProvingKey(curve=curve, domain_size=int(domain_size), num_instance=int(num_instance), **kw)
+
+
+GM17_G1 = ("g_gamma_t", "g_gamma2_t2", "g_ab_t")
+GM17_G2 = ("h_gamma_t",)
+GM17_G1_QUERIES = ("a_query", "c_query", "h_query")
+GM17_SAP = ("sap_pairs", "sap_U", "sap_W")
+
+
+def gm17_proving_key(curve: str, domain_size: int, num_instance: int, num_r1cs_vars: int,
+                     points: Dict[str, object], queries: Dict[str, list],
+                     sap: Dict[str, list]) -> GM17ProvingKey:
+    """The GM17 proving key. points: GM17_G1 names -> (x, y) ints, GM17_G2
+    names -> ((x0, x1), (y0, y1)) ints. queries: GM17_G1_QUERIES names ->
+    lists of (x, y) ints or None, "b_query" -> a list of ((x0, x1), (y0,
+    y1)) ints or None. sap: GM17_SAP names -> the SAP rows as lists of
+    (index, coefficient) pairs ("sap_pairs": a list of such row pairs)."""
+    missing = [k for k in GM17_G1 + GM17_G2 if k not in points] + [
+        k for k in GM17_G1_QUERIES + ("b_query",) if k not in queries
+    ] + [k for k in GM17_SAP if k not in sap]
+    if missing:
+        raise KeyError(f"proving key fields missing: {missing}")
+
+    def g1q(xy):
+        return None if xy is None else (None, None) if xy[0] is None else (int(xy[0]), int(xy[1]))
+
+    def row(r):
+        return [(int(i), int(c)) for i, c in r]
+
+    kw = {k: [g1q(xy) for xy in queries[k]] for k in GM17_G1_QUERIES}
+    kw["b_query"] = [None if xy is None else g2_point(curve, xy) for xy in queries["b_query"]]
+    kw.update({k: g1_point(curve, points[k]) for k in GM17_G1})
+    kw.update({k: g2_point(curve, points[k]) for k in GM17_G2})
+    kw["sap_pairs"] = [(row(a), row(b)) for a, b in sap["sap_pairs"]]
+    kw["sap_U"] = [row(r) for r in sap["sap_U"]]
+    kw["sap_W"] = [row(r) for r in sap["sap_W"]]
+    return GM17ProvingKey(curve=curve, domain_size=int(domain_size), num_instance=int(num_instance),
+                          num_r1cs_vars=int(num_r1cs_vars), **kw)
 
 
 def verification_key(scheme: str, curve: str, data: dict) -> VerificationKey:

@@ -1,0 +1,141 @@
+// Standalone point kernels for Hopper (sm_90a): mixed_add_lm and
+// accumulate_lm.
+//
+// mixed_add_kernel replaces the JAX package's Pallas kernel of the complete
+// mixed Jacobian + affine add over limb-major coordinates
+// (zokrates_tpu/kernels/pallas_field.py: mixed_add_kernel_factory /
+// mixed_add_lm); accumulate_kernel replaces its bucket accumulation
+// (accumulate_kernel_factory / accumulate_lm): per lane, chunk_len affine
+// points each mixed-added into the bucket its digit names. Neither has a
+// caller on a prove path of either package.
+//
+// What bounds them on an H100: a mixed add reads 5 coordinates and writes
+// 3 (512 B per point as int32 rows of 16-bit limbs) against 11 Montgomery
+// products (2904 32-bit multiplies): at 3.35 TB/s and 16.75e12 multiplies/s
+// the two take about the same time, so the mixed add sits at the roofline's
+// ridge. The accumulation reads 132 B per lane and step and writes
+// n_buckets * 192 B per lane once, against 11 products per step: bound by
+// operations at chunk_len = 16.
+//
+// Design: one thread per point (mixed add) or per lane (accumulation), the
+// TPU grid's block of lanes becoming the CUDA block (block = 256 threads,
+// the wrapper checks that it divides the lane count). The layout is
+// limb-major, [limb][lane], so for each limb a warp loads and stores 32
+// consecutive words; limbs are packed into field.cuh's 8 x 32-bit form and
+// split back at the store. The add is field.cuh's ec_mixed_add<Fq, true>,
+// the complete mixed add of the MSM walk: p_inf -> (Qx, Qy, one), P == Q
+// doubles, P == -Q gives Z = 0, in the order of the plain
+// _mixed_add_inline, so results are bit-equal to it.
+//
+// Where the TPU kernel keeps the lane's buckets in VMEM scratch and reads
+// and writes them through a one-hot select over all buckets per step (a
+// TPU has no per-lane addressing), the thread here indexes its bucket by
+// the digit directly. The buckets live in the output tensor itself
+// ([bucket][limb][lane], each thread touching only its own lane's words):
+// the thread writes (R, R, 0) to every bucket first, then loads, adds and
+// stores the one bucket a step names. That holds any n_buckets with no
+// per-thread array, and a warp's bucket accesses stay coalesced; the
+// buckets (n_buckets * 192 B a lane, 3 MB per 2^14 lanes at 16 buckets)
+// stay in L2 between steps. Digit 0 and digits >= n_buckets touch no
+// bucket, as in the reference.
+//
+// Interface: plain C functions (ctypes), launched on the caller's stream;
+// each returns cudaGetLastError() right after its launch.
+
+#include <cuda_runtime.h>
+
+#include "field.cuh"
+
+using namespace zkt;
+
+namespace {
+
+constexpr int ER = Rows<Fq>::value;  // 16 limb rows per coordinate
+
+__global__ void mixed_add_kernel(const int32_t* __restrict__ X, const int32_t* __restrict__ Y,
+                                 const int32_t* __restrict__ Z, const int32_t* __restrict__ Qx,
+                                 const int32_t* __restrict__ Qy, int32_t* __restrict__ oX,
+                                 int32_t* __restrict__ oY, int32_t* __restrict__ oZ, int N,
+                                 FieldParams P) {
+  const size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= (size_t)N) return;
+  const size_t Ns = (size_t)N;
+  Jac<Fq> A;
+  Fq qx, qy;
+  load(A.X, X, 0, Ns, lane);
+  load(A.Y, Y, 0, Ns, lane);
+  load(A.Z, Z, 0, Ns, lane);
+  load(qx, Qx, 0, Ns, lane);
+  load(qy, Qy, 0, Ns, lane);
+  bool is_dbl;
+  const Jac<Fq> S = ec_mixed_add<Fq, true>(A, qx, qy, is_dbl, P);
+  store(oX, 0, Ns, lane, S.X);
+  store(oY, 0, Ns, lane, S.Y);
+  store(oZ, 0, Ns, lane, S.Z);
+}
+
+// digits: (chunk_len, R) read as unsigned; Qx, Qy: (chunk_len * ER, R),
+// step t's limb rows at [t * ER, (t + 1) * ER); bX, bY, bZ: (n_buckets * ER,
+// R), bucket b's limb rows at [b * ER, (b + 1) * ER).
+__global__ void accumulate_kernel(const int32_t* __restrict__ digits,
+                                  const int32_t* __restrict__ Qx, const int32_t* __restrict__ Qy,
+                                  int32_t* __restrict__ bX, int32_t* __restrict__ bY,
+                                  int32_t* __restrict__ bZ, int chunk_len, int R, int n_buckets,
+                                  FieldParams P) {
+  const size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= (size_t)R) return;
+  const size_t Rs = (size_t)R;
+  Fq zero;
+  set_zero(zero);
+  for (int b = 0; b < n_buckets; ++b) {
+    store(bX, (size_t)b * ER, Rs, lane, P.one);
+    store(bY, (size_t)b * ER, Rs, lane, P.one);
+    store(bZ, (size_t)b * ER, Rs, lane, zero);
+  }
+  for (int t = 0; t < chunk_len; ++t) {
+    const uint32_t d = (uint32_t)__ldg(digits + (size_t)t * Rs + lane);
+    if (d == 0 || d >= (uint32_t)n_buckets) continue;
+    const size_t row = (size_t)d * ER;
+    Jac<Fq> B;
+    Fq qx, qy;
+    load(B.X, bX, row, Rs, lane);
+    load(B.Y, bY, row, Rs, lane);
+    load(B.Z, bZ, row, Rs, lane);
+    load(qx, Qx, (size_t)t * ER, Rs, lane);
+    load(qy, Qy, (size_t)t * ER, Rs, lane);
+    bool is_dbl;
+    B = ec_mixed_add<Fq, true>(B, qx, qy, is_dbl, P);
+    store(bX, row, Rs, lane, B.X);
+    store(bY, row, Rs, lane, B.Y);
+    store(bZ, row, Rs, lane, B.Z);
+  }
+}
+
+unsigned grid_of(int n, int block) { return (unsigned)((n + block - 1) / block); }
+
+}  // namespace
+
+extern "C" {
+
+// X, Y, Z, Qx, Qy, oX, oY, oZ: (16, N) int32 limb-major rows; block threads
+// per CUDA block. p and one as NL little-endian 32-bit limbs, n0 =
+// -p^-1 mod 2^32.
+int zkt_mixed_add_lm(const int32_t* X, const int32_t* Y, const int32_t* Z, const int32_t* Qx,
+                     const int32_t* Qy, int32_t* oX, int32_t* oY, int32_t* oZ, int N, int block,
+                     const uint32_t* p, const uint32_t* one, uint32_t n0, void* stream) {
+  const FieldParams P = make_params(p, one, n0, 0);
+  mixed_add_kernel<<<grid_of(N, block), block, 0, (cudaStream_t)stream>>>(X, Y, Z, Qx, Qy, oX, oY,
+                                                                          oZ, N, P);
+  return (int)cudaGetLastError();
+}
+
+int zkt_accumulate_lm(const int32_t* digits, const int32_t* Qx, const int32_t* Qy, int32_t* bX,
+                      int32_t* bY, int32_t* bZ, int chunk_len, int R, int n_buckets, int block,
+                      const uint32_t* p, const uint32_t* one, uint32_t n0, void* stream) {
+  const FieldParams P = make_params(p, one, n0, 0);
+  accumulate_kernel<<<grid_of(R, block), block, 0, (cudaStream_t)stream>>>(
+      digits, Qx, Qy, bX, bY, bZ, chunk_len, R, n_buckets, P);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -30,6 +30,8 @@ SOURCES = {
     "zkt_field": os.path.join(CSRC, "field_elementwise.cu"),
     "zkt_ntt": os.path.join(CSRC, "ntt.cu"),
     "zkt_mulacc": os.path.join(CSRC, "mulacc.cu"),
+    "zkt_point": os.path.join(CSRC, "point_elementwise.cu"),
+    "zkt_probe": os.path.join(CSRC, "probe.cu"),
 }
 HEADERS = [os.path.join(CSRC, "field.cuh")]
 ARCH = "arch=compute_90a,code=sm_90a"
@@ -92,6 +94,14 @@ def load() -> SimpleNamespace:
         },
         "zkt_mulacc": {
             "zkt_mulacc_walk": [P, P, P, P, I, I, I, L, L, U, P],
+        },
+        "zkt_point": {
+            "zkt_mixed_add_lm": [P, P, P, P, P, P, P, P, I, I, L, L, U, P],
+            "zkt_accumulate_lm": [P, P, P, P, P, P, I, I, I, I, L, L, U, P],
+        },
+        "zkt_probe": {
+            "zkt_probe_imad": [P, I, I, U, P],
+            "zkt_probe_mont": [P, I, I, L, L, U, P],
         },
     }
     fns = SimpleNamespace()

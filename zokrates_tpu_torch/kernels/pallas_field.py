@@ -20,7 +20,11 @@ plain version (emul_plain, ereduce_wide_plain: jfield's mul and
 reduce_wide), which the wrapper runs only for tensors on the CPU; and the
 sparse matvec's multiply-accumulate walk mulacc_walk (its _mulacc_call /
 mulacc_walk), CUDA kernel in csrc/mulacc.cu, plain version
-mulacc_walk_plain.
+mulacc_walk_plain; and the standalone point kernels over limb-major
+(nl, N) int32 coordinates, mixed_add_lm (the complete mixed add) and
+accumulate_lm (bucket accumulation by digit), CUDA kernels in
+csrc/point_elementwise.cu, plain versions mixed_add_lm_plain and
+accumulate_lm_plain (_mixed_add_inline with the doubling branch).
 """
 
 from __future__ import annotations
@@ -332,3 +336,142 @@ def mulacc_walk(p: int, z_walk, coeff_walk, flags_walk):
     cuda.check(rc, "mulacc_walk")
     LAUNCHES["mulacc_walk"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Standalone point kernels over limb-major coordinates
+# ---------------------------------------------------------------------------
+
+
+def _lm_coords(t: torch.Tensor, nl: int) -> torch.Tensor:
+    """(k*nl, N) int32 limb-major rows -> (k, N, nl) int64 elements."""
+    return t.to(torch.int64).reshape(-1, nl, t.shape[-1]).permute(0, 2, 1)
+
+
+def _lm_rows(c: torch.Tensor) -> torch.Tensor:
+    """(..., N, nl) int64 elements -> (..., nl, N) int32 limb-major rows."""
+    return c.transpose(-1, -2).to(torch.int32).contiguous()
+
+
+def mixed_add_lm_plain(p: int, X, Y, Z, Qx, Qy, block: int = 256):
+    """Plain version of the mixed_add_lm kernel: _mixed_add_inline with the
+    doubling branch, over all N points at once. Same arguments and results
+    as mixed_add_lm()."""
+    nl = field_spec(p).nl
+    P1 = tuple(_lm_coords(t, nl)[0] for t in (X, Y, Z))
+    X3, Y3, Z3, _ = _mixed_add_inline(field_ops(p), P1, _lm_coords(Qx, nl)[0], _lm_coords(Qy, nl)[0])
+    return _lm_rows(X3), _lm_rows(Y3), _lm_rows(Z3)
+
+
+def _check_lm(name, t, rows: int, N: int, device):
+    _check_packed(name, t, torch.int32, (rows, N))
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+
+
+def _check_block(block: int, N: int):
+    if not 1 <= block <= 1024:
+        raise ValueError(f"block must be in [1, 1024], got {block}")
+    if N % block:
+        raise ValueError(f"N={N} not a multiple of block={block}")
+
+
+def mixed_add_lm(p: int, X, Y, Z, Qx, Qy, block: int = 256):
+    """Complete mixed Jacobian + affine add over limb-major coordinates
+    (CUDA kernel mixed_add_kernel, the reference's mixed_add_lm).
+
+    X, Y, Z (Jacobian, Z = 0 at infinity) and Qx, Qy (affine): (nl, N)
+    int32 rows of canonical 16-bit Montgomery limbs, contiguous; N a
+    multiple of block (the kernel's threads per block). Returns the sum as
+    new (X, Y, Z), same layout: P at infinity gives (Qx, Qy, one), P == Q
+    the doubling, P == -Q Z = 0. CPU tensors take mixed_add_lm_plain; CUDA
+    tensors launch the kernel."""
+    nl = field_spec(p).nl
+    if not isinstance(X, torch.Tensor) or X.dim() != 2:
+        raise ValueError(f"X: expected a ({nl}, N) tensor")
+    N = X.shape[1]
+    for name, t in (("X", X), ("Y", Y), ("Z", Z), ("Qx", Qx), ("Qy", Qy)):
+        _check_lm(name, t, nl, N, X.device)
+    _check_block(block, N)
+    if X.device.type == "cpu":
+        return mixed_add_lm_plain(p, X, Y, Z, Qx, Qy, block)
+    if X.device.type != "cuda":
+        raise ValueError(f"mixed_add_lm: unsupported device {X.device}")
+    from . import cuda
+
+    lib = cuda.load()
+    pl, one, n0, _ = cuda.field_params(p, None)
+    out = torch.empty((3, nl, N), dtype=torch.int32, device=X.device)
+    if N == 0:
+        return out[0], out[1], out[2]
+    with torch.cuda.device(X.device):
+        rc = lib.zkt_mixed_add_lm(X.data_ptr(), Y.data_ptr(), Z.data_ptr(), Qx.data_ptr(), Qy.data_ptr(),
+                                  out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), N, block,
+                                  pl, one, n0, torch.cuda.current_stream(X.device).cuda_stream)
+    cuda.check(rc, "mixed_add_lm")
+    LAUNCHES["mixed_add_lm"] += 1
+    return out[0], out[1], out[2]
+
+
+def accumulate_lm_plain(p: int, digits, Qx, Qy, n_buckets: int = 16, block: int = 256):
+    """Plain version of the accumulate_lm kernel: per step, every lane's
+    bucket gathered by its digit, one _mixed_add_inline (with the doubling
+    branch) for all lanes, and the sums written back where the digit names
+    a bucket in [1, n_buckets). Same arguments and results as
+    accumulate_lm()."""
+    F = field_ops(p)
+    nl = F.nl
+    chunk_len, R = digits.shape
+    d = digits.to(torch.int64) & 0xFFFFFFFF  # the reference's digits are uint32
+    lane = torch.arange(R, device=digits.device)
+    one = F.ones_mont((n_buckets, R), digits.device)
+    B = [one, one.clone(), F.zeros((n_buckets, R), digits.device)]
+    qx, qy = _lm_coords(Qx, nl), _lm_coords(Qy, nl)  # (chunk_len, R, nl)
+    for t in range(chunk_len):
+        hit = (d[t] >= 1) & (d[t] < n_buckets)
+        b = torch.where(hit, d[t], 0)
+        X3, Y3, Z3, _ = _mixed_add_inline(F, tuple(c[b, lane] for c in B), qx[t], qy[t])
+        for c, new in zip(B, (X3, Y3, Z3)):
+            c[b, lane] = F.select(hit, new, c[b, lane])
+    return tuple(_lm_rows(c) for c in B)
+
+
+def accumulate_lm(p: int, digits, Qx, Qy, n_buckets: int = 16, block: int = 256):
+    """Bucket accumulation over limb-major points (CUDA kernel
+    accumulate_kernel, the reference's accumulate_lm).
+
+    digits: (chunk_len, R) int32, read as unsigned; Qx, Qy: (chunk_len*nl,
+    R) int32 affine limb rows, step t's at rows [t*nl, (t+1)*nl); all
+    contiguous, R a multiple of block. Lane j's buckets start as (one, one,
+    0); step t mixed-adds (Qx, Qy)[t, j] into bucket digits[t, j] when that
+    is in [1, n_buckets) and touches nothing otherwise. Returns the bucket
+    tables X, Y, Z, each (n_buckets, nl, R) int32. CPU tensors take
+    accumulate_lm_plain; CUDA tensors launch the kernel."""
+    nl = field_spec(p).nl
+    if not isinstance(digits, torch.Tensor) or digits.dim() != 2:
+        raise ValueError("digits: expected a (chunk_len, R) tensor")
+    if n_buckets < 1:
+        raise ValueError(f"n_buckets must be positive, got {n_buckets}")
+    chunk_len, R = digits.shape
+    _check_lm("digits", digits, chunk_len, R, digits.device)
+    _check_lm("Qx", Qx, chunk_len * nl, R, digits.device)
+    _check_lm("Qy", Qy, chunk_len * nl, R, digits.device)
+    _check_block(block, R)
+    if digits.device.type == "cpu":
+        return accumulate_lm_plain(p, digits, Qx, Qy, n_buckets, block)
+    if digits.device.type != "cuda":
+        raise ValueError(f"accumulate_lm: unsupported device {digits.device}")
+    from . import cuda
+
+    lib = cuda.load()
+    pl, one, n0, _ = cuda.field_params(p, None)
+    out = torch.empty((3, n_buckets, nl, R), dtype=torch.int32, device=digits.device)
+    if R == 0:
+        return out[0], out[1], out[2]
+    with torch.cuda.device(digits.device):
+        rc = lib.zkt_accumulate_lm(digits.data_ptr(), Qx.data_ptr(), Qy.data_ptr(), out[0].data_ptr(),
+                                   out[1].data_ptr(), out[2].data_ptr(), chunk_len, R, n_buckets, block,
+                                   pl, one, n0, torch.cuda.current_stream(digits.device).cuda_stream)
+    cuda.check(rc, "accumulate_lm")
+    LAUNCHES["accumulate_lm"] += 1
+    return out[0], out[1], out[2]

@@ -24,6 +24,9 @@ configuration on hardware:
   * prove_batch proves B witnesses of one circuit with one batched h
     stage (one mulacc_walk launch, one stacked NTT call per stage), the
     MSMs proof by proof, one fetch, and the host tails on threads,
+  * the MSM entry points the other schemes call (_msm_g1 / _msm_g2 over
+    host point lists, _msm_packed_g1 / _msm_dev_g2 over device rows) run
+    the same sorted MSM,
   * verification uses the host pairing-product oracle (ec/pairing.py).
 
 Proof/VK JSON is byte-compatible with the reference's {a,b,c} /
@@ -492,6 +495,114 @@ def compute_h(r1cs: R1CS, z: Sequence[int], n: int, device="cuda") -> List[int]:
     z_can = torch.as_tensor(ints_to_limbs([v % p for v in z], n_limbs(p)).astype(np.int64), device=device)
     h = _h_stage(r1cs.curve, R1CSDevice.build(r1cs, n, device), z_can[None])[0]
     return limbs_to_ints(h.cpu().numpy())[: n - 1]
+
+
+# ---------------------------------------------------------------------------
+# MSM entry points of the other schemes (GM17; the reference's KZG, Marlin,
+# Nova and MPC call the same ones)
+# ---------------------------------------------------------------------------
+
+_XLA_MSM = ("the port has no XLA-Pippenger MSM yet: wide-field G2 (a packed row over 128 "
+            "words) and G2 over the base field (BW6-761) are not ported")
+
+
+def _pad_pairs(pairs):
+    """Pad to the next power of two with (first point, scalar 0) — zero
+    scalars fall into the dropped bucket, and pow2 sizes share MSM
+    shapes across circuits."""
+    n = 1 << max(2, (len(pairs) - 1).bit_length())
+    return pairs + [(pairs[0][0], 0)] * (n - len(pairs))
+
+
+def _mont_elems(q: int, ints: Sequence[int], device) -> torch.Tensor:
+    """Host ints in [0, q) -> (len, nl) Montgomery limbs on `device`: the
+    canonical limbs uploaded, then one emul by the R^2 row."""
+    nl = n_limbs(q)
+    t = torch.as_tensor(ints_to_limbs(list(ints), nl).astype(np.int64), device=device)
+    return emul(q, t[None], _row(q, field_ops(q).spec.r2, device).expand(t.shape[0], nl))[0]
+
+
+def _sorted_inputs(P128: torch.Tensor, S: torch.Tensor, mask):
+    """(N, 128) packed rows and (m <= N, nls) scalars -> the sorted MSM's
+    config for N and both padded to a multiple of its walk granularity
+    M1*R, with scalar 0 where mask is False, past m and in the padding."""
+    from ..kernels.msm_sorted import default_config
+
+    N, m = P128.shape[0], S.shape[0]
+    if m > N:
+        raise ValueError(f"{m} scalars for {N} points")
+    if mask is not None:
+        S = torch.where(mask[:m, None], S, 0)
+    cfg = default_config(N)
+    full = -(-N // (cfg.M1 * cfg.R)) * (cfg.M1 * cfg.R)
+    P128 = torch.nn.functional.pad(P128, (0, 0, 0, full - N))
+    return cfg, P128, torch.nn.functional.pad(S, (0, 0, 0, full - m))
+
+
+def _msm_packed_g1(curve: str, P128: torch.Tensor, S: torch.Tensor, mask=None) -> PointG1:
+    """G1 MSM: packed rows (N, 128) int32 [x|y|-y|pad] (Montgomery limbs)
+    x canonical-limb scalars (m <= N, nls), both on one device, through the
+    sorted MSM (msm_sorted_host: CUDA walks, suffix and epilogue on a CUDA
+    device, their plain versions on the CPU). Masked-out and padded slots
+    get scalar zero (bucket 0 is skipped)."""
+    from ..kernels.msm_sorted import msm_sorted_host
+
+    grp = g1_group(curve)
+    cfg, P128, S = _sorted_inputs(P128, S, mask)
+    return _jac_to_g1(curve, msm_sorted_host(grp.q, grp.r, P128, S, cfg))
+
+
+def _msm_dev_g2(curve: str, Px: torch.Tensor, Py: torch.Tensor, S: torch.Tensor, mask=None) -> PointG2:
+    """G2 MSM over Fq2 coordinates (N, 2, nl) Montgomery x canonical-limb
+    scalars, through the sorted MSM's Fq2 walks (the rows packed by
+    pack_points_g2). Fields whose packed G2 row exceeds 128 words take
+    the reference's XLA Pippenger, which is not ported."""
+    from ..kernels.msm_sorted import msm_sorted_host, pack_points_g2
+
+    grp = g2_group(curve)
+    if 6 * n_limbs(grp.q) > 128:
+        raise NotImplementedError(_XLA_MSM)
+    cfg, P128, S = _sorted_inputs(pack_points_g2(grp.q, Px, Py), S, mask)
+    beta = grp.tower.beta - grp.q  # small negative representative
+    return _jac_to_g2(curve, msm_sorted_host(grp.q, grp.r, P128, S, cfg, beta=beta))
+
+
+def _msm_g1(curve: str, points: List[Optional[Tuple[int, int]]], scalars: List[int],
+            device="cuda") -> PointG1:
+    """G1 MSM over host (x, y) points; drops None points and zero scalars,
+    pads the pairs to a power of two, uploads them packed and runs
+    _msm_packed_g1 (the sorted MSM picks its own window width)."""
+    from ..kernels.msm_sorted import pack_points
+
+    grp = g1_group(curve)
+    pairs = [(pt, s % grp.r) for pt, s in zip(points, scalars) if pt is not None and s % grp.r != 0]
+    if not pairs:
+        return grp.zero()
+    pairs = _pad_pairs(pairs)
+    X = _mont_elems(grp.q, [pt[0] for pt, _ in pairs], device)
+    Y = _mont_elems(grp.q, [pt[1] for pt, _ in pairs], device)
+    return _msm_packed_g1(curve, pack_points(grp.q, X, Y), _scalar_limbs(grp, [s for _, s in pairs], device))
+
+
+def _msm_g2(curve: str, points: List[Optional[PointG2]], scalars: List[int],
+            device="cuda") -> PointG2:
+    """G2 MSM over host points, as _msm_g1, through _msm_dev_g2. A G2 over
+    the base field (BW6-style) takes the reference's XLA Pippenger, which
+    is not ported."""
+    grp = g2_group(curve)
+    pairs = [(pt, s % grp.r) for pt, s in zip(points, scalars) if pt is not None and s % grp.r != 0]
+    if not pairs:
+        return grp.zero()
+    if not hasattr(pairs[0][0].x, "c0"):
+        raise NotImplementedError(_XLA_MSM)
+    pairs = _pad_pairs(pairs)
+
+    def coord(get):
+        ints = [v for pt, _ in pairs for v in (get(pt).c0, get(pt).c1)]
+        return _mont_elems(grp.q, ints, device).reshape(len(pairs), 2, -1)
+
+    S = _scalar_limbs(grp, [s for _, s in pairs], device)
+    return _msm_dev_g2(curve, coord(lambda pt: pt.x), coord(lambda pt: pt.y), S)
 
 
 # ---------------------------------------------------------------------------
