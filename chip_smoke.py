@@ -15,7 +15,9 @@ Phases, each timed:
      inputs (real curve points; doubling, cancellation and infinity cases
      included): the walk in modes mixed-unsafe, mixed-safe and general,
      the suffix walk and its epilogue (suffix_fold), each over Fq and Fq2,
-     over G1 also at the shared-bucket h MSM's shapes; emul, ereduce_wide,
+     over G1 also at the shared-bucket h MSM's shapes and the a/b1/l
+     MSM's (three queries on one plan); each walk shape's sub-chunk
+     length S and thread count are logged; emul, ereduce_wide,
      the NTT and the matvec walk mulacc_walk (B = 1 and 16, the sha256
      walk layout and its flush pattern) over the scalar field — outputs
      must be bit-equal; then a full sorted MSM on the card against the
@@ -23,13 +25,18 @@ Phases, each timed:
   4. main path: the sha256 circuit (bench_artifacts/sha256.out, 27,459
      constraints, domain 2^15) and its witness through the port's readers,
      setup with a seeded rng (with the shared-bucket h query h16_p128),
-     the h MSM of one proof's h scalars in both forms (shared-bucket and
-     dense per window: equal as group elements, each timed), 3 proofs
-     with distinct fixed r, s, each verified by the host pairing check;
-     every kernel's launch count over setup and proofs must be above 0
-     (mulacc_walk at least once a proof), and no plain field product,
-     reduction, matvec walk or COO matvec may run on the card inside the
-     h stage, the corrections or the MSMs
+     3 proofs with distinct fixed r, s, each verified by the host pairing
+     check; every kernel's launch count over setup and proofs must be
+     above 0 (mulacc_walk at least once a proof), the walk, suffix and
+     epilogue launches per proof are logged by shape, and no plain field
+     product, reduction, matvec walk or COO matvec may run on the card
+     inside the h stage, the corrections or the MSMs; then the h MSM of
+     one proof's h scalars in both forms (shared-bucket and dense per
+     window: equal as group elements, each timed), and that MSM's h16
+     walk, first merge walk and epilogue on its own plan and points
+     against their plain versions (bit-equal, timed; each walk also at
+     every S through the kernel's C entry point, bit-equal to the
+     wrapper's output)
   5. batched path, as bench.py measures: 16 distinct sha256 witnesses made
      by the port's interpreter (preimage [16b, ..., 16b + 15]), one
      warm-up prove_batch and 2 timed ones; every proof of the last batch
@@ -123,10 +130,11 @@ CHECKED_ONLY = ("mixed_add_lm", "accumulate_lm")
 GM17_KERNELS = ("walk_mixed", "walk_general", "suffix", "suffix_fold", "ntt", "emul")
 # the variant whose time stands for each kernel in the kernels line: the
 # one the main path launches on the most data (G1, the walks, suffix and
-# epilogue of the shared-bucket h MSM, the matvec's product and reduction
+# epilogue of the shared-bucket h MSM, the walks and epilogue on a proof's
+# own plan, the matvec's product and reduction
 # (COO shape), the batch of 3 forward transforms, the batched matvec walk)
-MAIN_VARIANT = {"walk_mixed": ("Fq", "mixed-safe h16"), "walk_general": ("Fq", "general h16"),
-                "suffix": ("Fq", "fold=False h16"), "suffix_fold": ("Fq", "h16 MSM"),
+MAIN_VARIANT = {"walk_mixed": ("Fq", "mixed-safe h16 real"), "walk_general": ("Fq", "general h16 real"),
+                "suffix": ("Fq", "fold=False h16"), "suffix_fold": ("Fq", "h16 MSM real"),
                 "emul": ("Fr", "matvec"), "ereduce_wide": ("Fr", "matvec"),
                 "ntt": ("Fr", "forward x3"), "mulacc_walk": ("Fr", "B=16"),
                 "mixed_add_lm": ("Fq", "N=2^16"), "accumulate_lm": ("Fq", "16x16, 2^14 lanes")}
@@ -212,6 +220,18 @@ def walk_inputs(pool: Points, K: int, L: int, mode: str, nrng: np.random.Generat
     flags = flush.astype(np.int32) | (skip.astype(np.int32) << 1)
     qinf = idx == pool.inf_row if mode != "mixed" else np.zeros((K, L), bool)
     return q, torch.as_tensor(flags), qinf
+
+
+def walk_launch(K: int, L: int):
+    """The walk kernel's launch at (K, L): positions per sub-chunk S
+    (msm_sorted.walk_split), sub-chunks per lane and threads (one per lane
+    and sub-chunk); logged beside each walk shape."""
+    from zokrates_tpu_torch.kernels.msm_sorted import walk_split
+
+    S = walk_split(K, L)
+    T = -(-K // S)
+    log(f"    walk launch ({K}, {L}): S = {S}, {T} sub-chunk{'s' if T > 1 else ''} a lane, {T * L} threads")
+    return {"S": S, "subchunks": T, "threads": T * L}
 
 
 def walk_adds(flags: np.ndarray, qinf: np.ndarray) -> int:
@@ -329,8 +349,9 @@ def check_kernels(shapes, dev, tag: str = "", seed: int = SEED):
         sh = shapes["fq2" if ext else "fq"]
         variants = [(mode, safe, tag, sh) for mode, safe in
                     (("mixed", False), ("mixed", True), ("general", True))]
-        if "h16" in sh:  # the shared-bucket h MSM's walks (safe, as the prove)
-            variants += [("mixed", True, " h16", sh["h16"]), ("general", True, " h16", sh["h16"])]
+        extra = sh.get("extra", {})  # the h16 and a/b1/l MSMs' walks (safe, as the prove)
+        for vtag, shp in extra.items():
+            variants += [("mixed", True, vtag, shp), ("general", True, vtag, shp)]
         for mode, safe, vtag, shp in variants:
             K, L = shp["walk_" + mode]
             qrows, flags, qinf = walk_inputs(pool, K, L, mode, nrng)
@@ -345,9 +366,10 @@ def check_kernels(shapes, dev, tag: str = "", seed: int = SEED):
             label = ("general" if mode == "general" else mode + ("-safe" if safe else "-unsafe")) + vtag
             rec = _record("walk", fname, label, (K, L), out, ref, ms_k, ms_p, mults, nbytes)
             rec["collisions"] = int(out[1].sum())
+            rec.update(walk_launch(K, L))
             records["walk_" + mode].append(rec)
 
-        for stag, shp in [(tag, sh)] + ([(" h16", sh["h16"])] if "h16" in sh else []):
+        for stag, shp in [(tag, sh)] + list(extra.items()):
             Lb, M = shp["suffix"]
             ia = nrng.integers(0, pool.jac.shape[0], (Lb, M))
             ib = nrng.integers(0, pool.jac.shape[0], (Lb, M))
@@ -751,8 +773,9 @@ def fold_shape(Wn: int, Ks: int, cfg):
 def main_path_shapes(r1cs, wit):
     """The kernels' shapes in this circuit's prove: G1 at the h MSM, both in
     the shared-bucket form the prove takes (one window of Wc*N slots,
-    "h16") and dense over all windows (the epilogue also at the witness G1
-    MSMs' device windows), Fq2 at the b2 MSM's device windows for this
+    "h16") and dense over all windows, and at the witness G1 MSMs' device
+    windows (the a, b1 and l queries share one plan: three times the
+    lanes, "a/b1/l"), Fq2 at the b2 MSM's device windows for this
     witness, and the scalar field's elementwise kernels and transforms at
     the h stage's and the corrections' sizes."""
     from zokrates_tpu_torch.fields import params as P
@@ -773,7 +796,7 @@ def main_path_shapes(r1cs, wit):
     g2_W, g2_Ks = (w0, N) if w0 else (w1 - w0, Ks)
     fq, fq2 = walk_shapes(W, N, cfg), walk_shapes(g2_W, g2_Ks, cfg)
     cfgH, Wc = g._shared_h_cfg(cfg), shared_window_count(p, 16)
-    fq["h16"] = walk_shapes(1, Wc * N, cfgH)
+    fq["extra"] = {" h16": walk_shapes(1, Wc * N, cfgH), " a/b1/l": walk_shapes(3 * g2_W, g2_Ks, cfg)}
     fq["fold"] = {"h16 MSM": fold_shape(1, Wc * N, cfgH), "h MSM": fold_shape(W, N, cfg),
                   "a/b1/l MSM": fold_shape(3 * g2_W, g2_Ks, cfg)}
     fq2["fold"] = {"b2 MSM": fold_shape(g2_W, g2_Ks, cfg)}
@@ -903,7 +926,7 @@ def run_main_path(r1cs, wit, dev):
         f"{r1cs.num_variables} variables)")
 
     proofs, walls = [], []
-    with PlainGuard() as guard:
+    with PlainGuard() as guard, ShapeTally() as tally:
         for i in range(NPROOFS):
             rs = iter([(SEED + 1000 + 2 * i) % p, (SEED + 2001 + 2 * i) % p])
             timings = {}
@@ -914,6 +937,7 @@ def run_main_path(r1cs, wit, dev):
             log(f"  prove {i}: {walls[-1] * 1e3:.1f} ms  "
                 + "  ".join(f"{k}={v * 1e3:.1f}ms" for k, v in timings.items()))
     launches = launch_counts()
+    tally.report(NPROOFS, "proof")
     log(f"  plain field products / reductions on the card in the h stage, corrections and MSMs: "
         f"{guard.calls or 0}")
     if guard.calls:
@@ -981,6 +1005,8 @@ def compare_h_msm(r1cs, wit, pk, dev):
         return ms._msm_from_plan(q, W, cfg, pkd["h"], plan, True, mark=mark)[0]
 
     res = {}
+    with Capture() as cap:  # the h16 MSM's kernel inputs, for check_h16_real
+        h16(lambda label: None)
     for name, fn, Wn, c in (("h16", h16, 1, 16), ("dense", dense, W, cfg.c)):
         fn(lambda label: None)
         stages = {}
@@ -994,7 +1020,163 @@ def compare_h_msm(r1cs, wit, pk, dev):
     log(f"  h MSM shared-bucket == dense as affine points: {equal}")
     if not equal:
         raise AssertionError("the shared-bucket h MSM disagrees with the dense h MSM")
-    return {k: v[1] for k, v in res.items()}
+    return {k: v[1] for k, v in res.items()}, cap.calls
+
+
+class Capture:
+    """While active, passes every call of msm_sorted's walk, suffix and
+    suffix_fold wrappers to note(name, args) (positional arguments, as
+    the MSM calls them); by default keeps the arguments in order."""
+
+    NAMES = ("walk", "suffix", "suffix_fold")
+
+    def __init__(self, note=None):
+        self.calls = {name: [] for name in self.NAMES}
+        self.note = note or (lambda name, args: self.calls[name].append(args))
+
+    def __enter__(self):
+        from zokrates_tpu_torch.kernels import msm_sorted
+
+        self.saved = {name: getattr(msm_sorted, name) for name in self.NAMES}
+        for name, fn in self.saved.items():
+            def wrapped(*args, _name=name, _fn=fn):
+                self.note(_name, args)
+                return _fn(*args)
+            setattr(msm_sorted, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        from zokrates_tpu_torch.kernels import msm_sorted
+
+        for name, fn in self.saved.items():
+            setattr(msm_sorted, name, fn)
+
+
+class ShapeTally(Capture):
+    """While active, counts the launches of the walk, suffix and epilogue
+    kernels by kernel, field and shape (walk (K, L), suffix (Lb, M),
+    suffix_fold (G, lw, L)); only calls on CUDA tensors launch."""
+
+    def __init__(self):
+        from collections import Counter
+
+        self.counts = Counter()
+        super().__init__(self._count)
+
+    def _count(self, name, args):
+        if not args[0].is_cuda:
+            return
+        beta = args[-1]
+        field = "Fq" if beta is None else "Fq2"
+        if name == "walk":
+            mode, safe = args[3], args[4]
+            name = "walk_" + mode + ("" if mode == "general" else "-safe" if safe else "-unsafe")
+            shape = tuple(args[1].shape)
+        elif name == "suffix":
+            shape = (args[0].shape[0], args[0].shape[2])
+        else:
+            shape = tuple(args[2:5])
+        self.counts[(name, field, shape)] += 1
+
+    def report(self, runs: int, what: str):
+        """Logs the launches per run by kernel and shape (with each walk
+        shape's S and thread count) and returns them as records."""
+        from zokrates_tpu_torch.kernels.msm_sorted import walk_split
+
+        log(f"  launches per {what} by kernel and shape (over {runs}):")
+        out = []
+        for (name, field, shape), n in sorted(self.counts.items()):
+            rec = {"kernel": name, "field": field, "shape": list(shape), "per_run": n / runs}
+            extra = ""
+            if name.startswith("walk"):
+                S = walk_split(*shape)
+                rec.update(S=S, threads=-(-shape[0] // S) * shape[1])
+                extra = f", S = {S}, {rec['threads']} threads"
+            log(f"    {name:20s} {field:3s} {str(shape):16s} {n / runs:g}{extra}")
+            out.append(rec)
+        return out
+
+
+def sweep_walk_split(args, want):
+    """The walk kernel at sub-chunk lengths S = K, 64, 32, 16, 8, 4, 2, 1
+    (where <= K) through its C entry point, on the wrapper's inputs
+    `args`: each output bit-equal to the wrapper's `want`, each timed.
+    Returns {S: ms}; the wrapper's S comes from walk_split."""
+    import torch
+    from zokrates_tpu_torch.kernels import cuda
+
+    qrows, flags, p, mode, safe, beta = args
+    K, L = flags.shape
+    lib = cuda.load()
+    pl, one, n0, babs = cuda.field_params(p, beta)
+    stream = torch.cuda.current_stream(flags.device).cuda_stream
+    out = torch.empty_like(want[0])
+    coll = torch.empty_like(want[1])
+    times = {}
+    for S in sorted({K, 64, 32, 16, 8, 4, 2, 1}, reverse=True):
+        if S > K:
+            continue
+
+        def launch():
+            coll.zero_()
+            cuda.check(lib.zkt_msm_walk(qrows.data_ptr(), flags.data_ptr(), out.data_ptr(), coll.data_ptr(), K,
+                                        L, S, int(beta is not None), int(mode == "mixed"), int(safe), pl, one,
+                                        n0, babs, stream), "walk")
+        out.fill_(-1)
+        launch()
+        torch.cuda.synchronize()
+        if not (torch.equal(out, want[0]) and torch.equal(coll, want[1])):
+            raise AssertionError(f"the {mode} walk at S = {S} differs from the wrapper's output")
+        times[S] = cuda_ms(launch)
+    log(f"    sweep ({K}, {L}), bit-equal at every S: "
+        + "  ".join(f"S={S} {t:.4f} ms" for S, t in times.items()))
+    return times
+
+
+def check_h16_real(calls):
+    """The shared-bucket h MSM's mixed walk, its first merge walk and its
+    epilogue on one proof's own inputs (the plan and sorted points of its
+    h scalars, as compare_h_msm captured them), each against its plain
+    version, bit for bit, and timed; each walk also at every S
+    (sweep_walk_split). The random-flag checks at the same shapes flush 25%
+    of positions; the real plan's bucket runs are about 16 long."""
+    import torch
+    from zokrates_tpu_torch.kernels import msm_sorted as ms
+
+    records = {"walk_mixed": [], "walk_general": [], "suffix_fold": []}
+    walks = calls["walk"]
+    for args in (walks[0], walks[1]):
+        qrows, flags, p, mode, safe, beta = args
+        K, L = flags.shape
+        out = ms.walk(*args)
+        torch.cuda.synchronize()
+        ref, ms_p = host_ms(lambda: ms.walk_plain(*args))
+        ms_k = cuda_ms(lambda: ms.walk(*args))
+        fl = flags.cpu().numpy()
+        qinf = np.zeros(fl.shape, bool)
+        if mode == "general":
+            qinf = (qrows[:, 32:48] == 0).all(1).cpu().numpy()
+        mults = walk_adds(fl, qinf) * (MIXED_MULS if mode == "mixed" else GENERAL_MULS)
+        nbytes = 4 * (qrows.numel() + flags.numel() + sum(t.numel() for t in out))
+        label = ("mixed-safe" if mode == "mixed" else "general") + " h16 real"
+        rec = _record("walk", "Fq", label, (K, L), out, ref, ms_k, ms_p, mults, nbytes)
+        rec["collisions"] = int(out[1].sum())
+        rec["flushes"] = int(np.count_nonzero(fl & 1))
+        rec.update(walk_launch(K, L))
+        rec["sweep"] = sweep_walk_split(args, out)
+        records["walk_" + mode].append(rec)
+    out6, p, G, lw, L, beta = calls["suffix_fold"][0]
+    got = ms.suffix_fold(out6, p, G, lw, L, beta)
+    torch.cuda.synchronize()
+    ref, ms_p = host_ms(lambda: ms.suffix_fold_plain(out6, p, G, lw, L, beta))
+    ms_k = cuda_ms(lambda: ms.suffix_fold(out6, p, G, lw, L, beta))
+    ainf = (out6[32:48] == 0).all(0).cpu().numpy()
+    tinf = (out6[80:96] == 0).all(0).cpu().numpy()
+    mults = fold_mults(ainf, tinf, G, lw, L)
+    nbytes = 4 * out6.numel() + 8 * sum(t.numel() for t in got)
+    records["suffix_fold"].append(
+        _record("suffix_fold", "Fq", "h16 MSM real", (G, lw, L), got, ref, ms_k, ms_p, mults, nbytes))
+    return records
 
 
 def run_batch_path(r1cs, pk, vk, wits, dev, smi):
@@ -1015,7 +1197,7 @@ def run_batch_path(r1cs, pk, vk, wits, dev, smi):
     for mod in (msm_sorted, pallas_field, ntt_pallas):
         mod.LAUNCHES.clear()
     walls, splits = [], []
-    with PlainGuard() as guard:
+    with PlainGuard() as guard, ShapeTally() as tally:
         for i in range(1 + NBATCHES):
             draws = iter(rs(i))
             timings = {}
@@ -1027,6 +1209,7 @@ def run_batch_path(r1cs, pk, vk, wits, dev, smi):
             log(f"  prove_batch {i} (B={len(wits)}): {walls[-1] * 1e3:.1f} ms  "
                 + "  ".join(f"{k}={v * 1e3:.1f}ms" for k, v in timings.items()))
     launches = launch_counts()
+    tally.report(1 + NBATCHES, f"batch of {len(wits)}")
     log(f"  plain versions on the card in the batched h stage, corrections and MSMs: {guard.calls or 0}")
     if guard.calls:
         raise AssertionError(f"plain versions ran on CUDA tensors on the batched path: {guard.calls}")
@@ -1114,7 +1297,7 @@ def run_gm17_path(r1cs, wit, dev, smi):
         f"{len(pk.a_query)} variables, {len(vk.data['query'])} instance)")
 
     proofs, walls, splits = [], [], []
-    with PlainGuard() as guard:
+    with PlainGuard() as guard, ShapeTally() as tally:
         for i in range(GM17_PROOFS):
             r = (SEED + 3000 + i) % p
             timings = {}
@@ -1125,6 +1308,7 @@ def run_gm17_path(r1cs, wit, dev, smi):
             log(f"  prove {i}: {walls[-1] * 1e3:.1f} ms  "
                 + "  ".join(f"{k}={v * 1e3:.1f}ms" for k, v in timings.items()))
     launches = launch_counts()
+    tally.report(GM17_PROOFS, "GM17 proof")
     log(f"  plain versions on the card in the GM17 h stage and MSMs: {guard.calls or 0}")
     if guard.calls:
         raise AssertionError(f"plain versions ran on CUDA tensors on the GM17 path: {guard.calls}")
@@ -1215,7 +1399,11 @@ def main():
     launches, pk, vk = run_main_path(r1cs, wit, dev)
 
     log("== h MSM: shared-bucket (the prove's) vs dense, same h scalars")
-    compare_h_msm(r1cs, wit, pk, dev)
+    _, h16_calls = compare_h_msm(r1cs, wit, pk, dev)
+    log("== the h16 walks and epilogue on that proof's own plan (kernel vs plain version, bit-equal)")
+    for name, recs in check_h16_real(h16_calls).items():
+        records[name] += recs
+    del h16_calls
 
     log(f"== batched path: prove_batch, B={BATCH} distinct sha256 witnesses")
     t0 = time.perf_counter()

@@ -16,6 +16,10 @@ machine need not have; this file imports nothing of the JAX package.)
 
 Inputs: real curve points from seeded generators (with points at
 infinity), lane counts that are not multiples of the kernels' block size,
+the walk split into sub-chunks (many on few lanes, and every S through
+the C entry point) over the flag patterns of test_torch_walk_split, with a
+collision planted in one lane's second segment; the epilogue at lw = 1,
+2, 128 and 1024 over one and three windows;
 canonical field elements and lazy sums near 2^31 from seeded numpy; the
 NTT at 2^10 (one pass), the prove's 2^15 and 2^16 (two) and 2^21 (three),
 batches of 1 and 3; the epilogue also at the shared-bucket h MSM's shape
@@ -96,6 +100,100 @@ def test_walk_kernel_equals_plain(dev, ext, mode, safe):
     ref_out, ref_coll = ms.walk_plain(q, flags, Q, mode, safe, beta)
     assert torch.equal(out, ref_out)
     assert torch.equal(coll, ref_coll)
+
+
+def _split_inputs(ext, mode, K, L, seed, negatives=True):
+    """Walk rows and flags for the split walk: where K >= 10 the first
+    lanes take the flag patterns of test_torch_walk_split (no flush, a
+    flush everywhere, skips after a flush, all-skip lanes, leading skips,
+    skips carrying the flush, random), the others seeded random flags with
+    segments about 16 long; below K = 10 random flags. No point twice in a
+    row among a lane's non-skipped positions (mixed), without the negated points if not `negatives` (so no
+    partial sum meets a pool point again); points at infinity at about 10%
+    of positions (general)."""
+    from test_torch_walk_split import _patterns
+
+    affine, jac = _rows(ext, seed)
+    rng = np.random.default_rng(seed)
+    flush, skip = (0.06, 0.1) if K >= 10 else (0.3, 0.1)
+    flags = ((rng.random((K, L)) < flush).astype(np.int32)
+             | ((rng.random((K, L)) < skip).astype(np.int32) << 1))
+    if K >= 10:
+        cols = list(_patterns(K, rng).values())[:L]
+        flags[:, : len(cols)] = np.stack(cols, 1)
+    src = affine if mode == "mixed" else jac
+    if not negatives:
+        src = src[: affine.shape[0] // 2]
+    idx = rng.integers(0, src.shape[0] - (mode != "mixed"), (K, L))
+    if mode == "mixed":
+        last = np.full(L, -1)
+        for k in range(K):
+            rep = idx[k] == last
+            idx[k, rep] = (idx[k, rep] + 1) % src.shape[0]
+            last = np.where(flags[k] & 2, last, idx[k])
+    else:
+        idx[rng.random((K, L)) < 0.1] = src.shape[0] - 1
+    q = src[torch.as_tensor(idx)].permute(0, 2, 1).contiguous()
+    return q, torch.as_tensor(flags)
+
+
+@pytest.mark.parametrize("K,L", [(512, 64), (1, 300), (40, 200)])
+@pytest.mark.parametrize("ext,mode,safe", [(False, "mixed", True), (False, "mixed", False),
+                                           (False, "general", True), (True, "mixed", True),
+                                           (True, "general", True)],
+                         ids=["Fq-mixed-safe", "Fq-mixed-unsafe", "Fq-general", "Fq2-mixed-safe",
+                              "Fq2-general"])
+def test_split_walk_kernel_equals_plain(dev, ext, mode, safe, K, L):
+    """The walk kernel as the wrapper launches it (S = walk_split(K, L):
+    2 at (512, 64), 256 sub-chunks on few lanes) against walk_plain on
+    the flag patterns; lane counts that are not multiples of the block."""
+    if ext and K == 512:
+        K = 128  # the Fq2 plain walk at 512 positions takes minutes
+    q, flags = _split_inputs(ext, mode, K, L, seed=40 + K)
+    q, flags = q.to(dev), flags.to(dev)
+    beta = -1 if ext else None
+    before = ms.LAUNCHES["walk_" + mode]
+    out, coll = ms.walk(q, flags, Q, mode, safe, beta)
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["walk_" + mode] == before + 1
+    ref_out, ref_coll = ms.walk_plain(q, flags, Q, mode, safe, beta)
+    assert torch.equal(out, ref_out)
+    assert torch.equal(coll, ref_coll)
+
+
+@pytest.mark.parametrize("ext,mode,safe", [(False, "mixed", False), (False, "general", True),
+                                           (True, "mixed", True)],
+                         ids=["Fq-mixed-unsafe", "Fq-general", "Fq2-mixed-safe"])
+def test_walk_kernel_at_every_split(dev, ext, mode, safe):
+    """The kernel's C entry point at S = 1, 3, 7, 16 and K on the same
+    inputs (the wrapper picks one S per shape), each bit-equal to
+    walk_plain; the unsafe walk with a collision planted in the second
+    segment of one lane, which sets coll for that lane only."""
+    from zokrates_tpu_torch.kernels import cuda
+
+    K, L = 40, 200
+    q, flags = _split_inputs(ext, mode, K, L, seed=60, negatives=mode != "mixed")
+    lane = 2  # "skips after a flush": segments [0, 3), [5, 8), ...
+    if mode == "mixed" and not safe:
+        q[6, :, lane] = q[5, :, lane]
+    q, flags = q.to(dev), flags.to(dev)
+    beta = -1 if ext else None
+    ref_out, ref_coll = ms.walk_plain(q, flags, Q, mode, safe, beta)
+    if mode == "mixed" and not safe:
+        assert ref_coll.tolist() == [int(l == lane) for l in range(L)]
+    lib = cuda.load()
+    pl, one, n0, babs = cuda.field_params(Q, beta)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    en = 32 if ext else 16
+    for S in (1, 3, 7, 16, K):
+        out = torch.full((K, 3 * en, L), -1, dtype=torch.int32, device=dev)
+        coll = torch.zeros(L, dtype=torch.int32, device=dev)
+        rc = lib.zkt_msm_walk(q.data_ptr(), flags.data_ptr(), out.data_ptr(), coll.data_ptr(), K, L, S,
+                              int(ext), int(mode == "mixed"), int(safe), pl, one, n0, babs, stream)
+        cuda.check(rc, "walk")
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref_out), f"S={S}"
+        assert torch.equal(coll, ref_coll), f"S={S}"
 
 
 @pytest.mark.parametrize("ext", [False, True], ids=["Fq", "Fq2"])
@@ -203,6 +301,32 @@ def test_suffix_fold_kernel_equals_plain(dev, ext, lw, W, L):
     torch.cuda.synchronize()
     assert ms.LAUNCHES["suffix_fold"] == before + 1
     want = ms.suffix_fold_plain(out6, Q, W, lw, L, beta)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("lw", [1, 2, 128, 1024])
+@pytest.mark.parametrize("W", [1, 3])
+@pytest.mark.parametrize("ext", [False, True], ids=["Fq", "Fq2"])
+def test_suffix_fold_kernel_window_shapes(dev, ext, W, lw):
+    """The two-pass epilogue (ladders, then each window's tree) at lw = 1
+    (no tree), 2, 128 and 1024 (two adds a thread at the top level), one
+    and three windows, L = 5, with about a quarter of the lanes' acc and
+    tot at infinity and the last window's at infinity throughout."""
+    _, jac = _rows(ext, seed=21)
+    rng = np.random.default_rng(22 + lw + W)
+    inf = jac.shape[0] - 1
+    idx = rng.integers(0, jac.shape[0], (2, W * lw))
+    idx[rng.random((2, W * lw)) < 0.2] = inf
+    if W > 1:
+        idx[:, (W - 1) * lw :] = inf
+    out6 = torch.cat([jac[torch.as_tensor(idx[0])], jac[torch.as_tensor(idx[1])]], 1).T.contiguous().to(dev)
+    beta = -1 if ext else None
+    before = ms.LAUNCHES["suffix_fold"]
+    got = ms.suffix_fold(out6, Q, W, lw, 5, beta)
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["suffix_fold"] == before + 1
+    want = ms.suffix_fold_plain(out6, Q, W, lw, 5, beta)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 

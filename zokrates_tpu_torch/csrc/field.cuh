@@ -103,10 +103,11 @@ __device__ __forceinline__ Fq neg(const Fq& a, const FieldParams& P) {
   return d;
 }
 
-// CIOS Montgomery product a*b*R^-1 mod p. Out of line: the EC formulas
-// call it 11-69 times per point op, and inlining every call multiplies
-// the kernels' code size (and nvcc's compile time) for little gain.
-__device__ __noinline__ Fq mul(Fq a, Fq b, const FieldParams& P) {
+// CIOS Montgomery product a*b*R^-1 mod p, inlined only into the two
+// out-of-line products below: the EC formulas call them 11-69 times per
+// point op, and inlining every call multiplies the kernels' code size
+// (and nvcc's compile time) for little gain.
+__device__ __forceinline__ Fq mont_mul(const Fq& a, const Fq& b, const FieldParams& P) {
   uint32_t t[NL + 2];
 #pragma unroll
   for (int i = 0; i < NL + 2; ++i) t[i] = 0;
@@ -140,6 +141,8 @@ __device__ __noinline__ Fq mul(Fq a, Fq b, const FieldParams& P) {
   for (int i = 0; i < NL; ++i) r.v[i] = t[i];
   return cond_sub_p(r, t[NL], P);
 }
+
+__device__ __noinline__ Fq mul(Fq a, Fq b, const FieldParams& P) { return mont_mul(a, b, P); }
 
 __device__ __forceinline__ Fq select(bool c, const Fq& a, const Fq& b) { return c ? a : b; }
 
@@ -182,10 +185,16 @@ __device__ __forceinline__ Fq mul_small(const Fq& x, int k, const FieldParams& P
   return acc;
 }
 
-__device__ __forceinline__ Fq2 mul(const Fq2& a, const Fq2& b, const FieldParams& P) {
-  Fq t0 = mul(a.c0, b.c0, P);
-  Fq t1 = mul(a.c1, b.c1, P);
-  Fq t2 = mul(add(a.c0, a.c1, P), add(b.c0, b.c1, P), P);
+// One out-of-line call for the three Fq products of a Karatsuba step,
+// inlined together: their independent multiply chains interleave, the
+// Fq2 point ops make a third of the calls, and the Fq2 kernels spill
+// less than with three out-of-line Fq products (times in PERF.md).
+__device__ __noinline__ Fq2 mul(Fq2 a, Fq2 b, const FieldParams& P) {
+  const Fq s = add(a.c0, a.c1, P);
+  const Fq t = add(b.c0, b.c1, P);
+  const Fq t0 = mont_mul(a.c0, b.c0, P);
+  const Fq t1 = mont_mul(a.c1, b.c1, P);
+  const Fq t2 = mont_mul(s, t, P);
   return {sub(t0, mul_small(t1, P.beta_abs, P), P), sub(sub(t2, t0, P), t1, P)};
 }
 

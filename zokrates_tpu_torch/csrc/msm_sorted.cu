@@ -3,9 +3,10 @@
 // walk_kernel replaces the JAX package's Pallas walk
 // (zokrates_tpu/kernels/msm_sorted.py: walk_kernel_factory / _walk_call,
 // modes "mixed" and "general"); suffix_kernel replaces its suffix walk
-// (suffix_kernel_factory / _suffix_call, fold=False); suffix_fold_kernel
-// replaces the same kernel's fold=True epilogue (the multiplier ladder and
-// the per-window lane tree), launched after suffix_kernel.
+// (suffix_kernel_factory / _suffix_call, fold=False); fold_ladder_kernel
+// and fold_tree_kernel (one C entry point, zkt_msm_suffix_fold) replace
+// the same kernel's fold=True epilogue (the multiplier ladder and the
+// per-window lane tree), launched after suffix_kernel.
 //
 // What bounds them on an H100: 32-bit integer multiplies. A mixed add is
 // 11 Montgomery products (also 11 when it doubles: 4 before the branch, 7
@@ -16,27 +17,53 @@
 // point op against tens of thousands of multiply instructions: far on
 // the operations side of the roofline.
 //
-// Design: one thread per lane; the TPU grid's sequential position axis is
-// the thread's loop over its K positions, with the accumulator in
-// registers. All windows' lanes (and all point sets sharing a plan) go in
-// one launch, so the grid has tens of thousands of threads instead of the
-// TPU kernel's one window of 1024 lanes per call. Lanes never interact, so
-// results do not depend on the launch layout. The doubling inside the
-// adds is a branch (taken almost never) instead of the Pallas kernel's
-// compute-and-select, and skipped positions (flag bit 1) skip the add
-// entirely: the sorted order puts them in whole runs, so warps rarely
-// diverge on it. Memory access is lane-minor ([position][row][lane]), so
-// a warp's loads and stores are contiguous.
+// Walk design: a lane's K positions are cut into sub-chunks of S
+// positions, one thread for each (lane, sub-chunk); the wrapper picks S
+// (msm_sorted.walk_split) so that the grid fills the card's 132 SMs where
+// the lanes alone do not (2^14 threads: smaller sub-chunks add threads
+// but also idle spans in each warp), and S = K (one thread per lane)
+// where they do.
+// What makes the cut exact: after a flush the accumulator has Z = 0, and
+// both adds ignore X and Y of a P1 with Z = 0 (the mixed add returns
+// (Qx, Qy, 1), the complete add P2), so a walk that begins at such a
+// point from the zero triple computes the same limbs from there on as the
+// sequential walk. A position is "effective" if it is not skipped and
+// (complete add) its point is not at infinity: the complete add returns
+// P1 for Q at infinity, which is a skip. A "start" is position 0, or an
+// effective position with a flush after the lane's last effective
+// position before it (or none before it). The thread of sub-chunk t owns
+// the starts in [tS, (t+1)S): it walks from its first one up to the first
+// start at or after (t+1)S (or K), past its sub-chunk's end if need be,
+// and writes every snapshot on the way, the skips after a flush included
+// (they hold its own accumulator with Z zeroed, as the sequential walk
+// stores them). So every position is written by exactly one thread; a
+// sub-chunk with no start writes nothing. A thread learns whether its
+// accumulator is reset at tS by looking back from tS - 1 to the nearest
+// flush or effective position, and reads a point's Z (complete add) only
+// while its accumulator is reset, once a segment. A warp holds 32 neighbouring lanes of one
+// sub-chunk and steps them through positions together, each thread
+// masked to its own range, so loads and stores stay lane-contiguous
+// ([position][row][lane]); the loop ends when every thread of the warp
+// is done. coll is the OR over a lane's threads: the wrapper zeroes it
+// and a thread writes 1 only on a hit. msm_sorted.walk_owners replays the
+// ownership rule in Python. The doubling inside the adds is a branch
+// (taken almost never) instead of the Pallas kernel's compute-and-select.
+// All windows' lanes (and all point sets sharing a plan) go in one launch.
 //
 // The fold epilogue is bound by operations too: per lane a ladder of up to
 // log2((lw-1)*L) complete adds and doublings, then lw-1 complete adds per
 // window in the tree, against 2*3*ER words read per lane. Where the TPU
-// kernel ran a rotate-accumulate tree across its (S, 128) tile, one block
-// here holds one window: the ladder runs in registers, one thread per lane
-// (several lanes per thread above 128), and the tree in shared memory
-// (lw * 96 B for Fq, lw * 192 B for Fq2: 12 KB / 24 KB at lw = 128). It
-// follows the plain version's ladder and its pairwise halving tree
-// a[:s] + a[s:2s] exactly, so its window sums equal the plain version's
+// kernel ran a rotate-accumulate tree across its (S, 128) tile, it runs
+// here as two launches. fold_ladder_kernel: one thread per lane over all
+// G*lw lanes, in blocks of one warp so that they spread over as many SMs
+// as there are warps (the chain of dependent point ops, not the issue
+// rate, bounds a lane); each writes tot + base*acc to a scratch row.
+// fold_tree_kernel: one block per window adds the lane sums by the
+// pairwise halving tree, one thread per add at every level up to 256
+// threads (two adds a thread at the top level of lw = 1024), in shared
+// memory (lw/2 * 96 B for Fq, lw/2 * 192 B for Fq2: 48 KB / 96 KB at
+// lw = 1024). Both follow the plain version's ladder and its tree
+// a[:s] + a[s:2s] exactly, so the window sums equal the plain version's
 // limb for limb; the TPU's rotation tree adds in another order and agrees
 // with both as a group element.
 //
@@ -49,6 +76,7 @@
 //           out   (6*ER, M)        [acc | tot]: running sum and sum of sums
 //   fold:   in    (6*ER, G*lw)     the suffix output, lanes of window w at
 //                                  [w*lw, (w+1)*lw)
+//           sums  (3*ER, G*lw)     scratch: the lane sums tot + base*acc
 //           out   (3, G, ER)       int64 words of 16-bit limbs: X, Y, Z
 // ER = 16 rows per Fq coordinate, 32 per Fq2 coordinate ([c0 | c1]).
 //
@@ -64,34 +92,82 @@ using namespace zkt;
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kLadderThreads = 32;
+constexpr int kTreeThreads = 256;
+
+// walk thread states
+constexpr int kSeek = 0;  // before its first start: looks for one in [lo, hi)
+constexpr int kWalk = 1;  // walking, writing a snapshot at every position
+constexpr int kDone = 2;
+
+template <class E>
+__device__ __forceinline__ bool z_is_zero(const int32_t* qk, size_t L, size_t lane) {
+  constexpr int ER = Rows<E>::value;
+  int32_t acc = 0;
+#pragma unroll
+  for (int r = 0; r < ER; ++r) acc |= qk[(size_t)(2 * ER + r) * L + lane];
+  return acc == 0;
+}
 
 template <class E, bool MIXED, bool SAFE>
 __global__ void __launch_bounds__(kThreads) walk_kernel(const int32_t* __restrict__ q,
                                                          const int32_t* __restrict__ flags,
                                                          int32_t* __restrict__ out,
                                                          int32_t* __restrict__ coll, int K, int L,
-                                                         FieldParams P) {
-  const size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= (size_t)L) return;
+                                                         int S, FieldParams P) {
   constexpr int ER = Rows<E>::value;
   constexpr int IN_ROWS = MIXED ? 2 * ER : 3 * ER;
+  const size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t Ls = (size_t)L;
+  const int lo = blockIdx.y * S;
+  const int hi = min(lo + S, K);
+  // reset: the accumulator's Z is 0 by the flags alone (a flush after the
+  // last effective position, or no effective position yet)
+  bool reset = true;
+  int state = lane >= Ls ? kDone : (lo == 0 ? kWalk : kSeek);
+  if (state == kSeek) {
+    for (int j = lo - 1; j >= 0; --j) {
+      const int32_t fl = flags[(size_t)j * Ls + lane];
+      if (fl & 1) break;
+      if (!(fl & 2) && (MIXED || !z_is_zero<E>(q + (size_t)j * IN_ROWS * Ls, Ls, lane))) {
+        reset = false;
+        break;
+      }
+    }
+  }
   Jac<E> acc;
   set_zero(acc.X);
   set_zero(acc.Y);
   set_zero(acc.Z);
-  int32_t hit = 0;
-  for (int k = 0; k < K; ++k) {
+  bool hit = false;
+  // every thread of the warp stays in the loop until all are done
+  for (int k = lo; __any_sync(0xffffffffu, state != kDone); ++k) {
+    if (state == kDone) continue;
+    if (k >= K) {
+      state = kDone;
+      continue;
+    }
     const int32_t fl = flags[(size_t)k * Ls + lane];
     const int32_t* qk = q + (size_t)k * IN_ROWS * Ls;
-    if (!(fl & 2)) {
+    const bool skip = (fl & 2) != 0;
+    // whether k is effective matters only while reset: the point's Z is
+    // read once a segment
+    const bool start = !skip && reset && (MIXED || !z_is_zero<E>(qk, Ls, lane));
+    if (k >= hi && (state == kSeek || start)) {
+      state = kDone;
+      continue;
+    }
+    if (start) state = kWalk;
+    reset = (fl & 1) ? true : (start ? false : reset);
+    if (state != kWalk) continue;
+    if (!skip) {  // the complete add returns acc for Q at infinity, as a skip
       if (MIXED) {
         E Qx, Qy;
         load(Qx, qk, 0, Ls, lane);
         load(Qy, qk, ER, Ls, lane);
         bool is_dbl;
         acc = ec_mixed_add<E, SAFE>(acc, Qx, Qy, is_dbl, P);
-        if (!SAFE && is_dbl) hit = 1;
+        if (!SAFE && is_dbl) hit = true;
       } else {
         Jac<E> Qp;
         load_jac(Qp, qk, 0, Ls, lane);
@@ -101,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(const int32_t* __restric
     store_jac(out + (size_t)k * 3 * ER * Ls, 0, Ls, lane, acc);
     if (fl & 1) set_zero(acc.Z);
   }
-  coll[lane] = hit;
+  if (hit) coll[lane] = 1;
 }
 
 template <class E>
@@ -129,10 +205,9 @@ __global__ void __launch_bounds__(kThreads) suffix_kernel(const int32_t* __restr
   store_jac(out, 3 * ER, Ms, lane, tot);
 }
 
-// The epilogue's point ops, out of line: the kernel calls the add from three
-// places, and inlining the Fq2 add at each multiplies the code that ptxas
-// allocates registers over (and its compile time) for an epilogue that runs
-// once per MSM.
+// The epilogue's point ops, out of line: each kernel calls the add from
+// two or three places, and inlining the Fq2 add at each multiplies the
+// code that ptxas allocates registers over (and its compile time).
 template <class E>
 __device__ __noinline__ Jac<E> fold_add(const Jac<E>& a, const Jac<E>& b, const FieldParams& P) {
   return ec_add(a, b, P);
@@ -143,75 +218,103 @@ __device__ __noinline__ Jac<E> fold_double(const Jac<E>& a, const FieldParams& P
   return ec_double(a, P);
 }
 
-// The suffix epilogue (the reference's fold=True branch): one block per
-// window, lane i of the window at thread i (mod blockDim). Each lane
-// computes tot + base*acc with base = (lw-1-i)*L by the plain version's
-// ladder (bit k set: res += tmp; then tmp doubles), in registers; the lw
-// lane sums go to shared memory and a pairwise halving tree adds lane
-// i + s into lane i for s = lw/2, ..., 1. Window w's Jacobian sum is
-// written as int64 16-bit limbs to out[c][w] for c = X, Y, Z.
+// The suffix epilogue's first pass (the reference's fold=True branch):
+// one thread per lane of all G*lw lanes. Lane m = w*lw + i computes
+// tot + base*acc with base = (lw-1-i)*L by the plain version's ladder
+// (bit k set: res += tmp; then tmp doubles), in registers, and writes it
+// to sums (lane-minor rows, as the input).
 template <class E>
-__global__ void __launch_bounds__(kThreads) suffix_fold_kernel(const int32_t* __restrict__ in,
-                                                                int64_t* __restrict__ out, int G,
-                                                                int lw, int L, FieldParams P) {
+__global__ void __launch_bounds__(kLadderThreads) fold_ladder_kernel(const int32_t* __restrict__ in,
+                                                                      int32_t* __restrict__ sums,
+                                                                      int M, int lw, int L,
+                                                                      FieldParams P) {
+  const size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= (size_t)M) return;
+  constexpr int ER = Rows<E>::value;
+  const size_t Ms = (size_t)M;
+  Jac<E> acc, tot, res;
+  load_jac(acc, in, 0, Ms, lane);
+  load_jac(tot, in, 3 * ER, Ms, lane);
+  set_one(res.X, P);
+  set_one(res.Y, P);
+  set_zero(res.Z);
+  const int base = (lw - 1 - (int)(lane % lw)) * L;
+  // doublings past base's top bit are never added: they are skipped
+  for (int k = 0; (base >> k) != 0; ++k) {
+    if ((base >> k) & 1) res = fold_add(res, acc, P);
+    if ((base >> (k + 1)) != 0) acc = fold_double(acc, P);
+  }
+  store_jac(sums, 0, Ms, lane, fold_add(tot, res, P));
+}
+
+// The second pass: one block per window. The top level adds lane i + s
+// into lane i (s = lw/2) straight from the lane sums into shared memory,
+// then the levels s = lw/4, ..., 1 in shared memory; one thread per add
+// (up to blockDim). Window w's Jacobian sum is written as int64 16-bit
+// limbs to out[c][w] for c = X, Y, Z.
+template <class E>
+__global__ void __launch_bounds__(kTreeThreads) fold_tree_kernel(const int32_t* __restrict__ sums,
+                                                                  int64_t* __restrict__ out, int G,
+                                                                  int lw, FieldParams P) {
   extern __shared__ __align__(16) unsigned char fold_smem[];
   Jac<E>* lanes = reinterpret_cast<Jac<E>*>(fold_smem);
-  constexpr int ER = Rows<E>::value;
   const size_t M = (size_t)G * lw;
   const int w = blockIdx.x;
-  for (int i = threadIdx.x; i < lw; i += blockDim.x) {
-    const size_t lane = (size_t)w * lw + i;
-    Jac<E> acc, tot, res;
-    load_jac(acc, in, 0, M, lane);
-    load_jac(tot, in, 3 * ER, M, lane);
-    set_one(res.X, P);
-    set_one(res.Y, P);
-    set_zero(res.Z);
-    const int base = (lw - 1 - i) * L;
-    // doublings past base's top bit are never added: they are skipped
-    for (int k = 0; (base >> k) != 0; ++k) {
-      if ((base >> k) & 1) res = fold_add(res, acc, P);
-      if ((base >> (k + 1)) != 0) acc = fold_double(acc, P);
+  const size_t first = (size_t)w * lw;
+  int s = lw >> 1;
+  if (s == 0) {
+    if (threadIdx.x == 0) load_jac(lanes[0], sums, 0, M, first);
+  } else {
+    for (int i = threadIdx.x; i < s; i += blockDim.x) {
+      Jac<E> a, b;
+      load_jac(a, sums, 0, M, first + i);
+      load_jac(b, sums, 0, M, first + i + s);
+      lanes[i] = fold_add(a, b, P);
     }
-    lanes[i] = fold_add(tot, res, P);
   }
-  for (int s = lw >> 1; s >= 1; s >>= 1) {
+  for (s >>= 1; s >= 1; s >>= 1) {
     __syncthreads();
     for (int i = threadIdx.x; i < s; i += blockDim.x) lanes[i] = fold_add(lanes[i], lanes[i + s], P);
   }
   __syncthreads();
   if (threadIdx.x == 0) {
     const Jac<E> S = lanes[0];
-    store_wide(out + ((size_t)0 * G + w) * ER, S.X);
-    store_wide(out + ((size_t)1 * G + w) * ER, S.Y);
-    store_wide(out + ((size_t)2 * G + w) * ER, S.Z);
+    store_wide(out + ((size_t)0 * G + w) * Rows<E>::value, S.X);
+    store_wide(out + ((size_t)1 * G + w) * Rows<E>::value, S.Y);
+    store_wide(out + ((size_t)2 * G + w) * Rows<E>::value, S.Z);
   }
 }
 
 template <class E>
-int launch_suffix_fold(const int32_t* in, int64_t* out, int G, int lw, int L, const FieldParams& P,
-                       cudaStream_t s) {
-  const size_t smem = (size_t)lw * sizeof(Jac<E>);
+int launch_suffix_fold(const int32_t* in, int32_t* sums, int64_t* out, int G, int lw, int L,
+                       const FieldParams& P, cudaStream_t s) {
+  const int M = G * lw;
+  fold_ladder_kernel<E><<<(M + kLadderThreads - 1) / kLadderThreads, kLadderThreads, 0, s>>>(
+      in, sums, M, lw, L, P);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int half = lw > 1 ? lw / 2 : 1;
+  const size_t smem = (size_t)half * sizeof(Jac<E>);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(suffix_fold_kernel<E>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    e = cudaFuncSetAttribute(fold_tree_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int threads = lw < kThreads ? lw : kThreads;
-  suffix_fold_kernel<E><<<G, threads, smem, s>>>(in, out, G, lw, L, P);
+  const int threads = half < kTreeThreads ? half : kTreeThreads;
+  fold_tree_kernel<E><<<G, threads, smem, s>>>(sums, out, G, lw, P);
   return (int)cudaGetLastError();
 }
 
 template <class E>
 void launch_walk(const int32_t* q, const int32_t* flags, int32_t* out, int32_t* coll, int K, int L,
-                 int mixed, int safe, const FieldParams& P, cudaStream_t s) {
-  dim3 grid((L + kThreads - 1) / kThreads);
+                 int S, int mixed, int safe, const FieldParams& P, cudaStream_t s) {
+  dim3 grid((L + kThreads - 1) / kThreads, (K + S - 1) / S);
   if (mixed && safe)
-    walk_kernel<E, true, true><<<grid, kThreads, 0, s>>>(q, flags, out, coll, K, L, P);
+    walk_kernel<E, true, true><<<grid, kThreads, 0, s>>>(q, flags, out, coll, K, L, S, P);
   else if (mixed)
-    walk_kernel<E, true, false><<<grid, kThreads, 0, s>>>(q, flags, out, coll, K, L, P);
+    walk_kernel<E, true, false><<<grid, kThreads, 0, s>>>(q, flags, out, coll, K, L, S, P);
   else
-    walk_kernel<E, false, true><<<grid, kThreads, 0, s>>>(q, flags, out, coll, K, L, P);
+    walk_kernel<E, false, true><<<grid, kThreads, 0, s>>>(q, flags, out, coll, K, L, S, P);
 }
 
 }  // namespace
@@ -220,16 +323,18 @@ extern "C" {
 
 // Field constants: p and one as NL little-endian 32-bit limbs, n0 =
 // -p^-1 mod 2^32, beta_abs = |u^2| for Fq2 (ext != 0). mixed=0 requires
-// safe != 0 (the record-merge walk always uses complete adds).
+// safe != 0 (the record-merge walk always uses complete adds). S: the
+// positions of a sub-chunk, 1 <= S <= K, (K + S - 1) / S <= 65535; coll
+// must hold zeros (threads only set it).
 int zkt_msm_walk(const int32_t* q, const int32_t* flags, int32_t* out, int32_t* coll, int K, int L,
-                 int ext, int mixed, int safe, const uint32_t* p, const uint32_t* one, uint32_t n0,
-                 int beta_abs, void* stream) {
+                 int S, int ext, int mixed, int safe, const uint32_t* p, const uint32_t* one,
+                 uint32_t n0, int beta_abs, void* stream) {
   FieldParams P = make_params(p, one, n0, beta_abs);
   cudaStream_t s = (cudaStream_t)stream;
   if (ext)
-    launch_walk<Fq2>(q, flags, out, coll, K, L, mixed, safe, P, s);
+    launch_walk<Fq2>(q, flags, out, coll, K, L, S, mixed, safe, P, s);
   else
-    launch_walk<Fq>(q, flags, out, coll, K, L, mixed, safe, P, s);
+    launch_walk<Fq>(q, flags, out, coll, K, L, S, mixed, safe, P, s);
   return (int)cudaGetLastError();
 }
 
@@ -245,15 +350,16 @@ int zkt_msm_suffix(const int32_t* a, const int32_t* b, int32_t* out, int Lb, int
   return (int)cudaGetLastError();
 }
 
-// in: the suffix kernel's (6*ER, G*lw) [acc | tot] rows; out: (3, G, ER)
-// int64 window sums. lw is a power of two <= 1024.
-int zkt_msm_suffix_fold(const int32_t* in, int64_t* out, int G, int lw, int L, int ext,
-                        const uint32_t* p, const uint32_t* one, uint32_t n0, int beta_abs,
+// in: the suffix kernel's (6*ER, G*lw) [acc | tot] rows; sums: (3*ER,
+// G*lw) scratch; out: (3, G, ER) int64 window sums. lw is a power of two
+// <= 1024.
+int zkt_msm_suffix_fold(const int32_t* in, int32_t* sums, int64_t* out, int G, int lw, int L,
+                        int ext, const uint32_t* p, const uint32_t* one, uint32_t n0, int beta_abs,
                         void* stream) {
   FieldParams P = make_params(p, one, n0, beta_abs);
   cudaStream_t s = (cudaStream_t)stream;
-  if (ext) return launch_suffix_fold<Fq2>(in, out, G, lw, L, P, s);
-  return launch_suffix_fold<Fq>(in, out, G, lw, L, P, s);
+  if (ext) return launch_suffix_fold<Fq2>(in, sums, out, G, lw, L, P, s);
+  return launch_suffix_fold<Fq>(in, sums, out, G, lw, L, P, s);
 }
 
 const char* zkt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

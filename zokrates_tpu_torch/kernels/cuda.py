@@ -81,9 +81,9 @@ def load() -> SimpleNamespace:
     L = ctypes.POINTER(ctypes.c_uint32)
     sigs = {
         "zkt_msm": {
-            "zkt_msm_walk": [P, P, P, P, I, I, I, I, I, L, L, U, I, P],
+            "zkt_msm_walk": [P, P, P, P, I, I, I, I, I, I, L, L, U, I, P],
             "zkt_msm_suffix": [P, P, P, I, I, I, L, L, U, I, P],
-            "zkt_msm_suffix_fold": [P, P, I, I, I, I, L, L, U, I, P],
+            "zkt_msm_suffix_fold": [P, P, P, I, I, I, I, L, L, U, I, P],
         },
         "zkt_field": {
             "zkt_emul": [P, P, P, LL, LL, LL, LL, LL, L, L, U, P],

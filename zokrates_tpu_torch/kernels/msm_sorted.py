@@ -151,6 +151,64 @@ def walk_plain(q, flags, p: int, mode: str, safe: bool, beta=None):
     return out, coll.to(torch.int32)
 
 
+# the walk kernel's grid aims at this many threads where the lanes alone
+# fall short: about one block of 128 on each of an H100's 132 SMs. Smaller
+# sub-chunks give more threads but longer idle spans in each warp (its
+# threads' ranges start and end unevenly); chip_smoke.py's sweep of S on
+# the h16 walks times the trade.
+WALK_FILL_THREADS = 1 << 14
+
+
+def walk_split(K: int, L: int) -> int:
+    """Positions per sub-chunk S of the walk kernel for K positions on L
+    lanes: K where the lanes alone give WALK_FILL_THREADS threads (one
+    thread per lane), else the smallest S that cuts a lane into at most
+    ceil(WALK_FILL_THREADS / L) sub-chunks (and at most 65535, the grid's
+    y limit). The kernel runs one thread per (lane, sub-chunk)."""
+    if K <= 1 or L >= WALK_FILL_THREADS:
+        return max(K, 1)
+    nsub = min(-(-WALK_FILL_THREADS // L), K, 65535)
+    return -(-K // nsub)
+
+
+def walk_owners(flags, S: int, qinf=None) -> np.ndarray:
+    """Replay of the walk kernel's ownership rule (csrc/msm_sorted.cu).
+
+    flags: (K, L) walk flags (bit0 flush after, bit1 skip); qinf: (K, L)
+    bool, for the complete-add walk, where the incoming point is at
+    infinity (the add then returns the accumulator, as a skip does). A
+    position is effective if it is neither; a start is position 0, or an
+    effective position with a flush after the lane's last effective
+    position before it (or none before it). The thread of sub-chunk t owns
+    the starts in [tS, (t+1)S) and walks from the first of them to the
+    first start at or after (t+1)S (or K). Returns (T, L, 2) int64
+    ranges [a, b) for T = ceil(K/S) sub-chunks, a == b where the thread
+    writes nothing."""
+    flags = np.asarray(flags)
+    K, L = flags.shape
+    eff = (flags & 2) == 0
+    if qinf is not None:
+        eff &= ~np.asarray(qinf, bool)
+    flush = (flags & 1) != 0
+    start = np.zeros((K, L), bool)
+    reset = np.ones(L, bool)
+    for k in range(K):
+        start[k] = eff[k] & reset
+        reset = np.where(flush[k], True, np.where(eff[k], False, reset))
+    start[0] = True
+    nxt = np.full((K + 1, L), K, dtype=np.int64)  # first start at or after k
+    for k in range(K - 1, -1, -1):
+        nxt[k] = np.where(start[k], k, nxt[k + 1])
+    T = -(-K // S)
+    out = np.zeros((T, L, 2), dtype=np.int64)
+    for t in range(T):
+        lo, hi = t * S, min((t + 1) * S, K)
+        has = nxt[lo] < hi
+        out[t, :, 0] = np.where(has, nxt[lo], lo)
+        out[t, :, 1] = np.where(has, nxt[hi], lo)
+    return out
+
+
 def suffix_plain(a, b, p: int, beta=None):
     """Plain version of the suffix kernel. Same arguments and result as
     suffix()."""
@@ -190,7 +248,8 @@ def walk(q, flags, p: int, mode: str, safe: bool, beta=None):
     small negative non-residue). Returns the accumulator snapshot after
     every position (K, 3*en, L) and the per-lane collision flag (L,)
     (set only by the doubling-free mixed add, safe=False). All int32.
-    CPU tensors take walk_plain; CUDA tensors launch the kernel."""
+    CPU tensors take walk_plain; CUDA tensors launch the kernel, one thread
+    per lane and sub-chunk of walk_split(K, L) positions (walk_owners)."""
     if mode not in ("mixed", "general"):
         raise ValueError(f"unknown walk mode {mode!r}")
     if mode == "general" and not safe:
@@ -209,12 +268,12 @@ def walk(q, flags, p: int, mode: str, safe: bool, beta=None):
     lib = cuda.load()
     pl, one, n0, babs = cuda.field_params(p, beta)
     out = torch.empty((K, 3 * en, L), dtype=torch.int32, device=q.device)
-    coll = torch.empty((L,), dtype=torch.int32, device=q.device)
-    if L == 0:
+    coll = torch.zeros((L,), dtype=torch.int32, device=q.device)  # threads only set it
+    if L == 0 or K == 0:
         return out, coll
     with torch.cuda.device(q.device):
         rc = lib.zkt_msm_walk(
-            q.data_ptr(), flags.data_ptr(), out.data_ptr(), coll.data_ptr(), K, L,
+            q.data_ptr(), flags.data_ptr(), out.data_ptr(), coll.data_ptr(), K, L, walk_split(K, L),
             int(beta is not None), int(mode == "mixed"), int(safe), pl, one, n0, babs,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -289,15 +348,17 @@ def suffix_fold_plain(out6, p: int, W: int, lw: int, L: int, beta=None):
 
 
 def suffix_fold(out6, p: int, W: int, lw: int, L: int, beta=None):
-    """Suffix epilogue (CUDA kernel suffix_fold_kernel, the reference's
-    fold=True branch of the suffix kernel).
+    """Suffix epilogue (CUDA kernels fold_ladder_kernel and
+    fold_tree_kernel; the reference's fold=True branch of the suffix
+    kernel).
 
     out6: (6*en, W*lw) int32 [acc | tot] rows of the suffix walk, lanes
     [w*lw, (w+1)*lw) of window w, each lane covering L buckets; lw a power
     of two <= 1024. Returns window w's sum sum_i (tot_i + base_i*acc_i),
     base_i = (lw-1-i)*L, as Jacobian (W, en) int64 limb tensors X, Y, Z
     ([c0|c1] per Fq2 coordinate). CPU tensors take suffix_fold_plain; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel (two passes: the ladders, one thread per
+    lane, then each window's tree)."""
     beta = None if beta is None else small_beta(p, beta)
     en = _rows_per_coord(p, beta)
     if lw < 1 or lw > 1024 or lw & (lw - 1):
@@ -316,9 +377,10 @@ def suffix_fold(out6, p: int, W: int, lw: int, L: int, beta=None):
     out = torch.empty((3, W, en), dtype=torch.int64, device=out6.device)
     if W == 0:
         return out[0], out[1], out[2]
+    sums = torch.empty((3 * en, W * lw), dtype=torch.int32, device=out6.device)
     with torch.cuda.device(out6.device):
         rc = lib.zkt_msm_suffix_fold(
-            out6.data_ptr(), out.data_ptr(), W, lw, L, int(beta is not None), pl, one, n0, babs,
+            out6.data_ptr(), sums.data_ptr(), out.data_ptr(), W, lw, L, int(beta is not None), pl, one, n0, babs,
             torch.cuda.current_stream(out6.device).cuda_stream,
         )
     cuda.check(rc, "suffix_fold")
