@@ -44,7 +44,24 @@ Phases, each timed:
      same r, s byte for byte, the launch counts (set to 0 before the
      first batch) are above 0, and no plain version runs on the card;
      one more batch under torch.profiler gives the card's busy time
-  6. GM17 path: the same sha256 circuit as a SAP (domain 2^16), setup
+  6. BLS12-381 path: the same sha256 program compiled for bls12_381
+     (port_artifacts/sha256_bls12_381.out.gz, read with gzip) and 16
+     witnesses from the port's interpreter (preimage [16b, ..., 16b + 15];
+     witness 0 proves on the main path); every kernel of its prove against
+     its plain version at the prove's shapes, as in phase 3: the walks,
+     suffix and epilogue at 12 limbs over Fq and Fq2 (h16, dense h, a/b1/l
+     and b2 shapes), emul, ereduce_wide, the NTT at (3, 2^15) both ways and
+     mulacc_walk at B = 1 and 16 on its 255-bit r, a quarter of the values
+     within 2^8 of r; full sorted MSMs against the oracle over G1 and G2 of
+     BLS12-381 and BLS12-377; setup (with h16_p128; the b2 query keeps
+     its coordinates, packed on the card into rows of 144 words), 3 proofs
+     verified, a tampered proof and a wrong public input rejected; then
+     prove_batch as in phase 5. The launch counts are also tallied by limb
+     width: every MSM kernel launches at 12 limbs there, at no other width
+  7. BLS12-377: Groth16 setup, prove and verify on the card on a toy
+     circuit (Fq2 with u^2 = -5), forgeries rejected, the MSM kernels at
+     12 limbs
+  8. GM17 path: the same sha256 circuit as a SAP (domain 2^16), setup
      with a seeded rng, 3 proofs with distinct fixed r through
      schemes/gm17.prove (the h stage on the NTT and emul kernels, the four
      MSMs through groth16's MSM entry points) with their stage split, each
@@ -58,13 +75,14 @@ Phases, each timed:
      at the queries' 2^16 rows, over Fq and Fq2; the NTT at (2, 2^16)
      and (1, 2^16) both ways; emul at the h stage's shapes and at the
      queries' conversion to Montgomery form
-  7. the standalone point kernels mixed_add_lm (N = 2^16) and
+  9. the standalone point kernels mixed_add_lm (N = 2^16) and
      accumulate_lm (16 buckets, 16 steps, 2^14 lanes), which no path
      calls, against their plain versions from real curve points with
      every edge case (P at infinity, P == Q, P == -Q, digit 0, digits >=
      n_buckets, buckets hit several times); and the throughput probe: the
      card's rate of 32-bit IMAD and of 8-limb CIOS products
-  8. the kernels JSON line, the nvidia-smi line, and the result line.
+  10. the kernels JSON line (each check record with its width in 32-bit
+     limbs and its curve), the nvidia-smi line, and the result line.
 
 Exits non-zero on any failure; with no CUDA device it raises before
 printing a result.
@@ -72,17 +90,17 @@ printing a result.
 Kernel time bounds (bound_ms) are the larger of two times. Operations: the
 Montgomery products these inputs need (a skipped position, or an add or a
 doubling with a point at infinity, costs none; an Fq2 product is 3 Fq
-products) times
-264 32-bit multiplies per 8-limb CIOS product (8x8 a*b and 8x8 m*p
-products, low and high halves, plus 8 m = t0*n0), over the H100 SXM's
+products) times the 32-bit multiplies of one CIOS product at the kernel's
+width n (n x n a*b and n x n m*p products, low and high halves, plus n
+m = t0*n0: n(4n + 1), 264 at 8 limbs, 588 at 12), over the H100 SXM's
 32-bit integer multiply rate: 64 IMAD per SM per clock, half the float32
 FMA rate behind its published 67 TFLOP/s, i.e. 16.75e12/s at 700 W.
-The probe of phase 7 measures that rate; the constant stays the
+The probe of phase 9 measures that rate; the constant stays the
 derivation, with the measured ratio beside it in PERF.md.
 Bytes: inputs read once and outputs written once, over 3.35 TB/s. Field
 elements cross every kernel boundary as int64 words of 16-bit limbs (128 B
 per element), point rows as int32 words of 16-bit limbs (64 B per Fq
-coordinate).
+coordinate on BN254, 96 B on the BLS12 curves).
 """
 
 from __future__ import annotations
@@ -100,7 +118,16 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 INT32_MUL_RATE = 16.75e12      # 32-bit multiplies / s, H100 SXM at 700 W
 HBM_RATE = 3.35e12             # bytes / s, H100 SXM
-MULS_PER_MONT = 264            # 32-bit multiplies per 8-limb CIOS product
+
+
+def muls_per_mont(nl32: int) -> int:
+    """32-bit multiplies of one CIOS product at nl32 32-bit limbs (field.cuh's
+    mont_mul): per limb of a, nl32 products a_i*b_j and nl32 products m*p_j,
+    low and high halves, and m = t_0*n0: 264 at 8 limbs, 588 at 12."""
+    return nl32 * (4 * nl32 + 1)
+
+
+MULS_PER_MONT = muls_per_mont(8)
 FQ2_MULS = 3                   # Fq products per Fq2 product (Karatsuba)
 MIXED_MULS, GENERAL_MULS = 11, 16  # Montgomery products per point add
 DOUBLE_MULS = 7                # Montgomery products per doubling
@@ -164,18 +191,19 @@ class Points:
     meets doublings and cancellations), plus one point at infinity (Z = 0,
     X and Y arbitrary) as the last row."""
 
-    def __init__(self, ext: bool, rng: random.Random, n: int = 16):
+    def __init__(self, ext: bool, rng: random.Random, n: int = 16, curve: str = "bn128"):
         import torch
         from zokrates_tpu_torch.ec.curve import g1_group, g2_group
         from zokrates_tpu_torch.ec.tower import Fq2
         from zokrates_tpu_torch.fields.jfield import field_ops
         from zokrates_tpu_torch.fields.jfield2 import field_ops2
 
-        grp = g2_group("bn128") if ext else g1_group("bn128")
+        grp = g2_group(curve) if ext else g1_group(curve)
         q = grp.q
         self.q = q
-        self.beta = -1 if ext else None
-        f = field_ops2(q, -1) if ext else field_ops(q)
+        self.beta = grp.tower.beta - q if ext else None
+        self.width = field_ops(q).nl // 2
+        f = field_ops2(q, self.beta) if ext else field_ops(q)
         pts = [grp.generator() * rng.randrange(1, grp.r) for _ in range(n)]
 
         def coord(v):
@@ -266,10 +294,10 @@ def suffix_adds(ainf: np.ndarray, binf: np.ndarray) -> int:
     return n
 
 
-def bound(mults: int, nbytes: int):
-    """(bound_ms, bound_by) for `mults` Fq Montgomery products and
-    `nbytes` of inputs and outputs."""
-    t_ops = mults * MULS_PER_MONT / INT32_MUL_RATE
+def bound(mults: int, nbytes: int, width: int = 8):
+    """(bound_ms, bound_by) for `mults` Montgomery products at `width` 32-bit
+    limbs and `nbytes` of inputs and outputs."""
+    t_ops = mults * muls_per_mont(width) / INT32_MUL_RATE
     t_bytes = nbytes / HBM_RATE
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -314,27 +342,28 @@ def host_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def _record(name, field, mode, shape, got, want, ms_k, ms_p, mults, nbytes):
+def _record(name, field, mode, shape, got, want, ms_k, ms_p, mults, nbytes, width=8, curve="bn128"):
     import torch
 
     equal = all(torch.equal(g, w) for g, w in zip(got, want))
     err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
               for g, w in zip(got, want))
-    bms, by = bound(mults, nbytes)
-    rec = dict(field=field, mode=mode, shape=list(shape), equal=equal, max_abs_err=err,
-               ms=ms_k, plain_ms=ms_p, bound_ms=bms, bound_by=by)
-    log(f"  {name:12s} {mode:13s} {field:3s} {str(tuple(shape)):18s}: bit-equal={equal} "
+    bms, by = bound(mults, nbytes, width)
+    rec = dict(field=field, mode=mode, shape=list(shape), width=width, curve=curve, equal=equal,
+               max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=bms, bound_by=by)
+    log(f"  {name:12s} {mode:13s} {field:3s} {width:2d} limbs {str(tuple(shape)):18s}: bit-equal={equal} "
         f"kernel {ms_k:.4f} ms, plain {ms_p:.1f} ms, bound {bms:.4f} ms ({by})")
     if not equal:
         raise AssertionError(f"{name} {mode} over {field} differs from its plain version")
     return rec
 
 
-def check_kernels(shapes, dev, tag: str = "", seed: int = SEED):
+def check_kernels(shapes, dev, tag: str = "", seed: int = SEED, curve: str = "bn128"):
     """Every kernel variant vs its plain version on `dev`, bit for bit, at
-    a path's shapes (main_path_shapes or gm17_shapes), `tag` appended to
-    the walk and suffix labels. Returns the per-kernel check records for
-    the kernels JSON line."""
+    a path's shapes (main_path_shapes or gm17_shapes) over the curve's Fq
+    and Fq2 (8 32-bit limbs on BN254, 12 on the BLS12 curves), `tag`
+    appended to the walk and suffix labels. Returns the per-kernel check
+    records for the kernels JSON line."""
     import torch
     from zokrates_tpu_torch.kernels import msm_sorted as ms
 
@@ -342,8 +371,8 @@ def check_kernels(shapes, dev, tag: str = "", seed: int = SEED):
     nrng = np.random.default_rng(seed)
     records = {"walk_mixed": [], "walk_general": [], "suffix": [], "suffix_fold": []}
     for ext in (False, True):
-        pool = Points(ext, rng)
-        q, beta = pool.q, pool.beta
+        pool = Points(ext, rng, curve=curve)
+        q, beta, width = pool.q, pool.beta, pool.width
         fname = "Fq2" if ext else "Fq"
         fm = FQ2_MULS if ext else 1
         sh = shapes["fq2" if ext else "fq"]
@@ -364,7 +393,7 @@ def check_kernels(shapes, dev, tag: str = "", seed: int = SEED):
             mults = walk_adds(flags.numpy(), qinf) * per_add * fm
             nbytes = 4 * (qrows.numel() + flags.numel() + sum(t.numel() for t in out))
             label = ("general" if mode == "general" else mode + ("-safe" if safe else "-unsafe")) + vtag
-            rec = _record("walk", fname, label, (K, L), out, ref, ms_k, ms_p, mults, nbytes)
+            rec = _record("walk", fname, label, (K, L), out, ref, ms_k, ms_p, mults, nbytes, width, curve)
             rec["collisions"] = int(out[1].sum())
             rec.update(walk_launch(K, L))
             records["walk_" + mode].append(rec)
@@ -382,9 +411,10 @@ def check_kernels(shapes, dev, tag: str = "", seed: int = SEED):
             mults = suffix_adds(ia == pool.inf_row, ib == pool.inf_row) * GENERAL_MULS * fm
             nbytes = 4 * (A.numel() + B.numel() + out.numel())
             records["suffix"].append(_record("suffix", fname, "fold=False" + stag, (Lb, M), (out,), (ref,),
-                                             ms_k, ms_p, mults, nbytes))
+                                             ms_k, ms_p, mults, nbytes, width, curve))
 
         for label, (G, lw, L) in sh["fold"].items():
+            label += tag if curve != "bn128" else ""
             inf = pool.inf_row
             idx = nrng.integers(0, inf, (2, G * lw))
             idx[nrng.random((2, G * lw)) < 0.1] = inf
@@ -397,7 +427,8 @@ def check_kernels(shapes, dev, tag: str = "", seed: int = SEED):
             mults = fold_mults(idx[0] == inf, idx[1] == inf, G, lw, L) * fm
             nbytes = 4 * out6.numel() + 8 * sum(t.numel() for t in out)
             records["suffix_fold"].append(
-                _record("suffix_fold", fname, label, (G, lw, L), out, ref, ms_k, ms_p, mults, nbytes))
+                _record("suffix_fold", fname, label, (G, lw, L), out, ref, ms_k, ms_p, mults, nbytes, width,
+                        curve))
     return records
 
 
@@ -428,38 +459,46 @@ def fold_mults(ainf: np.ndarray, tinf: np.ndarray, G: int, lw: int, L: int) -> i
     return n
 
 
-def fr_elems(shape, nrng: np.random.Generator, p: int):
+def fr_elems(shape, nrng: np.random.Generator, p: int, near: float = 0.0):
     """Canonical residues mod p as (..., 16) int64 16-bit limbs: random low
-    limbs and a top limb below p's."""
+    limbs and a top limb below p's; a share `near` of them within 2^8 of p
+    instead."""
     import torch
 
     x = nrng.integers(0, 1 << 16, tuple(shape) + (16,), dtype=np.int64)
     x[..., -1] = nrng.integers(0, p >> 240, tuple(shape))
+    if near:
+        sel = nrng.random(tuple(shape)) < near
+        k = nrng.integers(1, 1 << 8, int(sel.sum()))
+        x[sel] = [[((p - int(v)) >> (16 * i)) & 0xFFFF for i in range(16)] for v in k]
     return torch.as_tensor(x)
 
 
-def check_field_kernels(fr, dev, seed: int = SEED + 2):
+def check_field_kernels(fr, dev, seed: int = SEED + 2, curve: str = "bn128", tag: str = "", near: float = 0.0):
     """emul, ereduce_wide and the NTT against their plain versions at a
-    path's shapes (fr: the "fr" entry of main_path_shapes or gm17_shapes):
-    emul cases (label, field "Fr" or "Fq", batch, elements, b: "shared"
-    (L, nl), "full" (B, L, nl) or "row" (stride 0)), ereduce_wide cases (label, batch, elements)
-    and the NTT's size with its cases (label, batch, inverse)."""
+    path's shapes (fr: the "fr" entry of main_path_shapes or gm17_shapes)
+    over the curve's fields, `tag` appended to the labels, a share `near`
+    of the elements within 2^8 of the modulus: emul cases (label, field
+    "Fr" or "Fq", batch, elements, b: "shared" (L, nl), "full" (B, L, nl)
+    or "row" (stride 0)), ereduce_wide cases (label, batch, elements) and
+    the NTT's size with its cases (label, batch, inverse)."""
     import torch
     from zokrates_tpu_torch.fields import params as P
     from zokrates_tpu_torch.kernels import ntt_pallas as nk
     from zokrates_tpu_torch.kernels import pallas_field as pf
     from zokrates_tpu_torch.kernels.ntt import domain_for_curve
 
-    p = P.SCALAR_FIELDS["bn128"].p
-    moduli = {"Fr": p, "Fq": P.BASE_FIELDS["bn128"].p}
+    p = P.SCALAR_FIELDS[curve].p
+    moduli = {"Fr": p, "Fq": P.BASE_FIELDS[curve].p}
     nrng = np.random.default_rng(seed)
     records = {"emul": [], "ereduce_wide": [], "ntt": []}
     for label, fname, B, L, kind in fr["emul"]:
         m = moduli[fname]
-        a = fr_elems((B, L), nrng, m).to(dev)
-        b = {"shared": lambda: fr_elems((L,), nrng, m),
-             "full": lambda: fr_elems((B, L), nrng, m),
-             "row": lambda: fr_elems((), nrng, m).expand(L, 16)}[kind]().to(dev)
+        label += tag
+        a = fr_elems((B, L), nrng, m, near).to(dev)
+        b = {"shared": lambda: fr_elems((L,), nrng, m, near),
+             "full": lambda: fr_elems((B, L), nrng, m, near),
+             "row": lambda: fr_elems((), nrng, m, near).expand(L, 16)}[kind]().to(dev)
         out = pf.emul(m, a, b)
         torch.cuda.synchronize()
         ref, ms_p = host_ms(lambda: pf.emul_plain(m, a, b))
@@ -467,19 +506,21 @@ def check_field_kernels(fr, dev, seed: int = SEED + 2):
         b_elems = {"shared": L, "full": B * L, "row": 1}[kind]
         nbytes = ELEM_BYTES * (2 * B * L + b_elems)
         records["emul"].append(_record("emul", fname, label, (B, L), (out,), (ref,), ms_k, ms_p,
-                                       B * L, nbytes))
+                                       B * L, nbytes, curve=curve))
     for label, B, L in fr["ereduce_wide"]:
+        label += tag
         t = torch.as_tensor(nrng.integers(0, 1 << 31, (B, L, 16), dtype=np.int64)).to(dev)
         out = pf.ereduce_wide(p, t)
         torch.cuda.synchronize()
         ref, ms_p = host_ms(lambda: pf.ereduce_wide_plain(p, t))
         ms_k = cuda_ms(lambda: pf.ereduce_wide(p, t))
         records["ereduce_wide"].append(_record("ereduce_wide", "Fr", label, (B, L), (out,), (ref,),
-                                               ms_k, ms_p, 2 * B * L, 2 * ELEM_BYTES * B * L))
+                                               ms_k, ms_p, 2 * B * L, 2 * ELEM_BYTES * B * L, curve=curve))
     n, ntt_cases = fr["ntt"]
-    dom = domain_for_curve("bn128", n)
+    dom = domain_for_curve(curve, n)
     for label, B, inverse in ntt_cases:
-        x = fr_elems((B, n), nrng, p).to(dev)
+        label += tag
+        x = fr_elems((B, n), nrng, p, near).to(dev)
         out = nk.fft_core(dom, x, inverse)
         torch.cuda.synchronize()
         ref, ms_p = host_ms(lambda: nk.fft_core_plain(dom, x, inverse))
@@ -487,43 +528,44 @@ def check_field_kernels(fr, dev, seed: int = SEED + 2):
         mults = B * (n // 2) * dom.k
         nbytes = 2 * ELEM_BYTES * B * n + 32 * (n - 1)
         records["ntt"].append(_record("ntt", "Fr", label, (B, n), (out,), (ref,), ms_k, ms_p,
-                                      mults, nbytes))
+                                      mults, nbytes, curve=curve))
     return records
 
 
-def check_mulacc(walk, dev):
+def check_mulacc(walk, dev, curve: str = "bn128", tag: str = "", near: float = 0.0):
     """mulacc_walk against its plain version at the main path's shapes: the
     sha256 walk layout (K records on 1024 lanes) and its flush flags, at
     B = 1 (prove) and B = 16 (prove_batch), with seeded canonical z and
-    coefficients. Bound: every record is one product; bytes are z and the
-    output per proof and record, the coefficients and flags once."""
+    coefficients mod the curve's r (a share `near` within 2^8 of r).
+    Bound: every record is one product; bytes are z and the output per
+    proof and record, the coefficients and flags once."""
     import torch
     from zokrates_tpu_torch.fields import params as P
     from zokrates_tpu_torch.kernels import pallas_field as pf
 
-    p = P.SCALAR_FIELDS["bn128"].p
+    p = P.SCALAR_FIELDS[curve].p
     nrng = np.random.default_rng(SEED + 3)
     K, M = walk.K, walk.M
-    coeff = fr_elems((K, M), nrng, p).permute(0, 2, 1).contiguous().to(dev)
+    coeff = fr_elems((K, M), nrng, p, near).permute(0, 2, 1).contiguous().to(dev)
     flags = walk.flags_walk
     records = []
     for B in (1, BATCH):
-        z = fr_elems((B, K, M), nrng, p).permute(0, 1, 3, 2).contiguous().to(dev)
+        z = fr_elems((B, K, M), nrng, p, near).permute(0, 1, 3, 2).contiguous().to(dev)
         out = pf.mulacc_walk(p, z, coeff, flags)
         torch.cuda.synchronize()
         ref, ms_p = host_ms(lambda: pf.mulacc_walk_plain(p, z, coeff, flags))
         ms_k = cuda_ms(lambda: pf.mulacc_walk(p, z, coeff, flags))
         nbytes = ELEM_BYTES * (2 * B * K * M + K * M) + 4 * K * M
-        records.append(_record("mulacc_walk", "Fr", f"B={B}", (B, K, 16, M), (out,), (ref,), ms_k, ms_p,
-                               B * K * M, nbytes))
+        records.append(_record("mulacc_walk", "Fr", f"B={B}" + tag, (B, K, 16, M), (out,), (ref,), ms_k, ms_p,
+                               B * K * M, nbytes, curve=curve))
         del z, out, ref
     return {"mulacc_walk": records}
 
 
-def check_msm_oracle(dev, N: int = 8192):
+def check_msm_oracle(dev, N: int = 8192, curve: str = "bn128"):
     """Full sorted MSM on the card (plans, walks, merges, suffix, host
-    combine) against the Python-int oracle: points k_i*G, so the MSM is
-    (sum k_i s_i) * G."""
+    combine) over the curve's G1 and G2 against the Python-int oracle:
+    points k_i*G, so the MSM is (sum k_i s_i) * G."""
     import torch
     from zokrates_tpu_torch.ec.curve import g1_group, g2_group
     from zokrates_tpu_torch.ec.tower import Fq2
@@ -534,14 +576,15 @@ def check_msm_oracle(dev, N: int = 8192):
 
     rng = random.Random(SEED + 1)
     for ext in (False, True):
-        grp = g2_group("bn128") if ext else g1_group("bn128")
+        grp = g2_group(curve) if ext else g1_group(curve)
         q, r = grp.q, grp.r
+        beta = grp.tower.beta - q if ext else None
         base = [grp.generator() * rng.randrange(1, r) for _ in range(8)]
         ks = [rng.randrange(8) for _ in range(N)]
         pts = [base[k] for k in ks]
         sc = [rng.randrange(r) if i % 3 else rng.randrange(4) for i in range(N)]
         if ext:
-            f = field_ops2(q, -1)
+            f = field_ops2(q, beta)
             P128 = pack_points_g2(q, f.encode([(p.x.c0, p.x.c1) for p in pts]),
                                   f.encode([(p.y.c0, p.y.c1) for p in pts]))
         else:
@@ -549,7 +592,7 @@ def check_msm_oracle(dev, N: int = 8192):
             P128 = pack_points(q, f.encode([p.x for p in pts]), f.encode([p.y for p in pts]))
         S = torch.as_tensor(ints_to_limbs(sc, 16).astype(np.int64))
         t0 = time.perf_counter()
-        jx, jy, jz = msm_sorted_host(q, r, P128.to(dev), S.to(dev), beta=-1 if ext else None)
+        jx, jy, jz = msm_sorted_host(q, r, P128.to(dev), S.to(dev), beta=beta)
         dt = time.perf_counter() - t0
         want = grp.zero()
         for k in range(8):
@@ -561,7 +604,8 @@ def check_msm_oracle(dev, N: int = 8192):
             zi = pow(jz, -1, q)
             got = (jx * zi * zi % q, jy * zi ** 3 % q)
         ok = got == (want.x, want.y)
-        log(f"  sorted MSM {'G2' if ext else 'G1'} N={N} on the card vs oracle: equal={ok} ({dt:.2f} s)")
+        log(f"  sorted MSM {curve} {'G2' if ext else 'G1'} N={N} ({P128.shape[1]}-word rows) on the card vs "
+            f"oracle: equal={ok} ({dt:.2f} s)")
         if not ok:
             raise AssertionError("sorted MSM disagrees with the Python-int oracle")
 
@@ -674,8 +718,9 @@ def probe_rates(dev):
     """The card's rate of 32-bit IMAD and of 8-limb CIOS products (field.cuh's
     mul), from saturating kernels of their own (csrc/probe.cu): 8 blocks of
     256 threads per SM, CUDA events around 3 launches after a warm-up.
-    Returns the rates and their ratios to INT32_MUL_RATE (a CIOS product
-    counted as MULS_PER_MONT multiplies)."""
+    Returns the rates, their ratios to INT32_MUL_RATE (a CIOS product
+    counted as MULS_PER_MONT multiplies) and each launch's bound, its
+    multiplies over INT32_MUL_RATE."""
     import torch
     from zokrates_tpu_torch.fields import params as P
     from zokrates_tpu_torch.kernels import cuda
@@ -686,7 +731,7 @@ def probe_rates(dev):
     threads = 256 * blocks
     out = torch.empty(threads, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    pl, one, n0, _ = cuda.field_params(P.BASE_FIELDS["bn128"].p, None)
+    _, pl, one, n0, _ = cuda.field_params(P.BASE_FIELDS["bn128"].p, None, cuda.NL32_FIELD)
 
     def seconds(launch, reps=3):
         cuda.check(launch(), "probe")
@@ -705,8 +750,10 @@ def probe_rates(dev):
     imad = threads * imad_iters * 128 / t_imad
     cios = threads * mont_iters * 4 / t_mont
     res = {"imad_per_s": imad, "imad_ratio": imad / INT32_MUL_RATE, "imad_ms": t_imad * 1e3,
+           "imad_bound_ms": threads * imad_iters * 128 / INT32_MUL_RATE * 1e3,
            "cios_per_s": cios, "cios_mults_per_s": cios * MULS_PER_MONT,
            "cios_ratio": cios * MULS_PER_MONT / INT32_MUL_RATE, "cios_ms": t_mont * 1e3,
+           "cios_bound_ms": threads * mont_iters * 4 * MULS_PER_MONT / INT32_MUL_RATE * 1e3,
            "sms": sms, "blocks": blocks}
     log(f"  32-bit IMAD: {imad:.4e}/s ({res['imad_ratio']:.4f} x the bound's {INT32_MUL_RATE:.4e}); "
         f"CIOS products: {cios:.4e}/s = {res['cios_mults_per_s']:.4e} multiplies/s at {MULS_PER_MONT} "
@@ -735,10 +782,24 @@ def load_sha256():
     return prog, r1cs, wit
 
 
-def batch_witnesses(prog):
-    """BATCH distinct sha256 witnesses as bench.py makes them: preimage
-    [16b, ..., 16b + 15] through the ABI and the port's interpreter, each
-    written in the binary witness format and read back."""
+def load_sha256_bls12_381():
+    """The sha256 program compiled for bls12_381
+    (port_artifacts/sha256_bls12_381.out.gz, read with gzip) and its R1CS."""
+    import gzip
+
+    from zokrates_tpu_torch.ir.r1cs import r1cs_from_prog
+    from zokrates_tpu_torch.ir.serialize import deserialize
+
+    with gzip.open(os.path.join(ROOT, "port_artifacts", "sha256_bls12_381.out.gz"), "rb") as f:
+        prog = deserialize(f.read())
+    return prog, r1cs_from_prog(prog)
+
+
+def batch_witnesses(prog, count: int = BATCH):
+    """`count` distinct sha256 witnesses as bench.py makes them: preimage
+    [16b, ..., 16b + 15] through the ABI (bench_artifacts/sha256.abi.json)
+    and the port's interpreter over the program's curve, each written in
+    the binary witness format and read back."""
     from zokrates_tpu_torch.abi import encode_inputs
     from zokrates_tpu_torch.fields.field import FIELDS
     from zokrates_tpu_torch.interp.interpreter import Interpreter
@@ -746,12 +807,13 @@ def batch_witnesses(prog):
 
     with open(os.path.join(ROOT, "bench_artifacts", "sha256.abi.json")) as f:
         abi = json.load(f)
+    field = FIELDS[prog.curve]
     out = []
-    for b in range(BATCH):
-        flat = encode_inputs([[[b * 16 + j for j in range(16)]]], abi["inputs"], FIELDS["bn128"].P)
+    for b in range(count):
+        flat = encode_inputs([[[b * 16 + j for j in range(16)]]], abi["inputs"], field.P)
         buf = io.BytesIO()
-        Interpreter().execute(prog, flat).write(buf, FIELDS["bn128"])
-        out.append(Witness.read(io.BytesIO(buf.getvalue()), FIELDS["bn128"]))
+        Interpreter().execute(prog, flat).write(buf, field)
+        out.append(Witness.read(io.BytesIO(buf.getvalue()), field))
     return out
 
 
@@ -784,7 +846,7 @@ def main_path_shapes(r1cs, wit):
     from zokrates_tpu_torch.native import available
     from zokrates_tpu_torch.schemes import groth16 as g
 
-    p = P.SCALAR_FIELDS["bn128"].p
+    p = P.SCALAR_FIELDS[r1cs.curve].p
     m = r1cs.num_variables
     n = 1 << (r1cs.num_constraints + r1cs.num_instance - 1).bit_length()
     N = max(g._msm_tier(m), g._msm_tier(n - 1))
@@ -907,23 +969,25 @@ def launch_counts():
     return counts
 
 
-def run_main_path(r1cs, wit, dev):
-    """Setup, NPROOFS proofs and their verification, with the kernels'
-    launch counts set to 0 just before setup and read after the proofs."""
+def run_main_path(r1cs, wit, dev, forgeries: bool = False):
+    """Setup, NPROOFS proofs and their verification on the r1cs's curve,
+    with the kernels' launch counts set to 0 just before setup and read
+    after the proofs; with `forgeries`, a tampered proof (a <-> c) and a
+    wrong public input must fail to verify."""
     import torch
     from zokrates_tpu_torch.fields import params as P
-    from zokrates_tpu_torch.kernels import msm_sorted, ntt_pallas, pallas_field
+    from zokrates_tpu_torch.kernels import msm_sorted
     from zokrates_tpu_torch.schemes import groth16 as g
 
-    p = P.SCALAR_FIELDS["bn128"].p
+    p = P.SCALAR_FIELDS[r1cs.curve].p
     rng = random.Random(SEED)
-    for mod in (msm_sorted, pallas_field, ntt_pallas):
-        mod.LAUNCHES.clear()
+    clear_launches()
     t0 = time.perf_counter()
     pk, vk = g.setup(r1cs, rng=lambda: rng.randrange(1, p), device=dev)
     torch.cuda.synchronize()
     log(f"  setup: {time.perf_counter() - t0:.2f} s (domain {pk.domain_size}, "
-        f"{r1cs.num_variables} variables)")
+        f"{r1cs.num_variables} variables; b2 rows {pk.b2_rows().shape[1]} words, h16 rows "
+        f"{None if pk.h16_p128 is None else pk.h16_p128.shape})")
 
     proofs, walls = [], []
     with PlainGuard() as guard, ShapeTally() as tally:
@@ -938,6 +1002,7 @@ def run_main_path(r1cs, wit, dev):
                 + "  ".join(f"{k}={v * 1e3:.1f}ms" for k, v in timings.items()))
     launches = launch_counts()
     tally.report(NPROOFS, "proof")
+    log(f"  launches by width (kernel, 32-bit limbs): {dict(msm_sorted.WIDTH_LAUNCHES)}")
     log(f"  plain field products / reductions on the card in the h stage, corrections and MSMs: "
         f"{guard.calls or 0}")
     if guard.calls:
@@ -951,12 +1016,55 @@ def run_main_path(r1cs, wit, dev):
             raise AssertionError(f"proof {i} failed to verify")
     if len({json.dumps(pr.points, sort_keys=True) for pr in proofs}) != len(proofs):
         raise AssertionError("proofs with distinct r, s are not distinct")
+    if forgeries:
+        check_forgeries(g, vk, proofs[0], r1cs.curve)
     check_launches(launches, NPROOFS, "the main path")
     steady = walls[1:]  # proof 0 carries the one-off uploads
     log(f"  launches over setup and {NPROOFS} proofs: {launches}")
     log(f"  steady state: {len(steady) / sum(steady):.4f} proofs/s "
         f"({sum(steady) / len(steady) * 1e3:.1f} ms/proof over proofs 1..{len(walls) - 1})")
     return launches, pk, vk
+
+
+def clear_launches():
+    from zokrates_tpu_torch.kernels import msm_sorted, ntt_pallas, pallas_field
+
+    for mod in (msm_sorted, pallas_field, ntt_pallas):
+        mod.LAUNCHES.clear()
+    msm_sorted.WIDTH_LAUNCHES.clear()
+
+
+def check_forgeries(scheme, vk, proof, curve: str):
+    """A tampered proof (a <-> c) and a proof with a wrong public input must
+    fail scheme.verify."""
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.schemes.types import Proof, fr_to_json
+
+    tampered = Proof.from_json(proof.to_json())
+    tampered.points["a"], tampered.points["c"] = tampered.points["c"], tampered.points["a"]
+    wrong = Proof.from_json(proof.to_json())
+    if not wrong.inputs:
+        raise AssertionError("the circuit has no public input to alter")
+    wrong.inputs[0] = fr_to_json((int(wrong.inputs[0], 16) + 1) % P.SCALAR_FIELDS[curve].p, curve)
+    for name, bad in (("tampered (a <-> c)", tampered), ("wrong public input", wrong)):
+        ok = scheme.verify(vk, bad)
+        log(f"  verify {name}: {ok}")
+        if ok:
+            raise AssertionError(f"a proof with a {name} verified")
+
+
+def check_width(width: int, path: str):
+    """Every MSM kernel launched at `width` 32-bit limbs on the path (counts
+    set to 0 just before it) and at no other width."""
+    from zokrates_tpu_torch.kernels import msm_sorted
+
+    counts = dict(msm_sorted.WIDTH_LAUNCHES)
+    names = ("walk_mixed", "walk_general", "suffix", "suffix_fold")
+    missing = [n for n in names if counts.get((n, width), 0) <= 0]
+    other = {k: v for k, v in counts.items() if k[1] != width}
+    if missing or other:
+        raise AssertionError(f"on {path} the MSM kernels must launch at {width} limbs only: {counts}")
+    return {n: counts[(n, width)] for n in names}
 
 
 def check_launches(launches, runs: int, path: str):
@@ -1108,7 +1216,7 @@ def sweep_walk_split(args, want):
     qrows, flags, p, mode, safe, beta = args
     K, L = flags.shape
     lib = cuda.load()
-    pl, one, n0, babs = cuda.field_params(p, beta)
+    nl, pl, one, n0, babs = cuda.field_params(p, beta)
     stream = torch.cuda.current_stream(flags.device).cuda_stream
     out = torch.empty_like(want[0])
     coll = torch.empty_like(want[1])
@@ -1120,8 +1228,8 @@ def sweep_walk_split(args, want):
         def launch():
             coll.zero_()
             cuda.check(lib.zkt_msm_walk(qrows.data_ptr(), flags.data_ptr(), out.data_ptr(), coll.data_ptr(), K,
-                                        L, S, int(beta is not None), int(mode == "mixed"), int(safe), pl, one,
-                                        n0, babs, stream), "walk")
+                                        L, S, nl, int(beta is not None), int(mode == "mixed"), int(safe), pl,
+                                        one, n0, babs, stream), "walk")
         out.fill_(-1)
         launch()
         torch.cuda.synchronize()
@@ -1186,16 +1294,15 @@ def run_batch_path(r1cs, pk, vk, wits, dev, smi):
     and 1 equal prove() of the same witness with the same r, s."""
     import torch
     from zokrates_tpu_torch.fields import params as P
-    from zokrates_tpu_torch.kernels import msm_sorted, ntt_pallas, pallas_field
+    from zokrates_tpu_torch.kernels import msm_sorted
     from zokrates_tpu_torch.schemes import groth16 as g
 
-    p = P.SCALAR_FIELDS["bn128"].p
+    p = P.SCALAR_FIELDS[r1cs.curve].p
 
     def rs(i):  # r0, s0, r1, s1, ... of batch i
         return [(SEED + 10000 * (i + 1) + j) % p for j in range(2 * len(wits))]
 
-    for mod in (msm_sorted, pallas_field, ntt_pallas):
-        mod.LAUNCHES.clear()
+    clear_launches()
     walls, splits = [], []
     with PlainGuard() as guard, ShapeTally() as tally:
         for i in range(1 + NBATCHES):
@@ -1215,6 +1322,7 @@ def run_batch_path(r1cs, pk, vk, wits, dev, smi):
         raise AssertionError(f"plain versions ran on CUDA tensors on the batched path: {guard.calls}")
     check_launches(launches, 1 + NBATCHES, "the batched path")
     log(f"  launches over {1 + NBATCHES} batches: {launches}")
+    log(f"  launches by width (kernel, 32-bit limbs): {dict(msm_sorted.WIDTH_LAUNCHES)}")
 
     t0 = time.perf_counter()
     bad = [b for b, pr in enumerate(proofs) if not g.verify(vk, pr)]
@@ -1236,7 +1344,7 @@ def run_batch_path(r1cs, pk, vk, wits, dev, smi):
     timed = walls[1:]
     ms_batch = sum(timed) / len(timed) * 1e3
     split = {k: sum(t.get(k, 0.0) for t in splits[1:]) / len(timed) * 1e3 for k in splits[-1]}
-    log(f"  B={len(wits)} sha256 prove_batch: {len(wits) * len(timed) / sum(timed):.4f} proofs/s, "
+    log(f"  B={len(wits)} sha256 {r1cs.curve} prove_batch: {len(wits) * len(timed) / sum(timed):.4f} proofs/s, "
         f"{ms_batch:.1f} ms/batch (mean of batches 1..{NBATCHES}; {smi}): "
         + "  ".join(f"{k}={v:.1f}ms" for k, v in split.items()))
     profile_batch(r1cs, pk, wits, dev, rs(NBATCHES + 1))
@@ -1272,6 +1380,98 @@ def profile_batch(r1cs, pk, wits, dev, rs):
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
+def run_bls12_381_path(dev, smi, records):
+    """Groth16 on BLS12-381 on the card: the sha256 circuit of
+    port_artifacts/ and witnesses from the port's interpreter (witness 0,
+    preimage [0, ..., 15], proves on the main path); every kernel of its
+    prove against its plain version at the prove's shapes (the MSM kernels
+    at 12 limbs over Fq and Fq2, the scalar-field kernels on its 255-bit r
+    with a quarter of the values within 2^8 of r), appended to `records`;
+    full sorted MSMs against the oracle on BLS12-381 and BLS12-377; setup,
+    NPROOFS proofs and forgeries; the batch of BATCH witnesses. Returns the
+    launch counts of the main path and of the batches."""
+    import torch
+    from zokrates_tpu_torch.ir.r1cs_device import build_mulacc_walk
+    from zokrates_tpu_torch.schemes import groth16 as g
+
+    curve, tag = "bls12_381", " bls12_381"
+    log("== BLS12-381: load sha256 (port_artifacts/sha256_bls12_381.out.gz), witnesses")
+    t0 = time.perf_counter()
+    prog, r1cs = load_sha256_bls12_381()
+    t_load = time.perf_counter() - t0
+    wits = batch_witnesses(prog)
+    shapes, info = main_path_shapes(r1cs, wits[0])
+    walk = build_mulacc_walk(g._r1cs_device(r1cs, info["n"], dev))
+    log(f"  {r1cs.curve}: {r1cs.num_constraints} constraints, {r1cs.num_variables} variables (read in "
+        f"{t_load:.1f} s); {len(wits)} witnesses by the port's interpreter ({time.perf_counter() - t0 - t_load:.1f} "
+        f"s); MSM {info}; matvec walk K={walk.K} x M={walk.M} lanes")
+
+    log("== BLS12-381 kernel checks (kernel vs plain version at the prove's shapes, bit-equal)")
+    t0 = time.perf_counter()
+    for got in (check_kernels(shapes, dev, tag, SEED + 8, curve),
+                check_field_kernels(shapes["fr"], dev, SEED + 9, curve, tag, near=0.25),
+                check_mulacc(walk, dev, curve, tag, near=0.25)):
+        for name, recs in got.items():
+            records[name] += recs
+    for c in ("bls12_381", "bls12_377"):
+        check_msm_oracle(dev, curve=c)
+    log(f"  checks: {time.perf_counter() - t0:.1f} s")
+
+    log("== BLS12-381 main path: setup, prove, verify (sha256, 2^15)")
+    launches, pk, vk = run_main_path(r1cs, wits[0], dev, forgeries=True)
+    log(f"  12-limb MSM launches over setup and {NPROOFS} proofs: {check_width(12, 'the BLS12-381 main path')}")
+    log(f"== BLS12-381 batched path: prove_batch, B={BATCH} distinct sha256 witnesses")
+    launches_batch = run_batch_path(r1cs, pk, vk, wits, dev, smi)
+    log(f"  12-limb MSM launches over the batches: {check_width(12, 'the BLS12-381 batched path')}")
+    return launches, launches_batch
+
+
+def toy_r1cs(curve: str):
+    """x_{i+1} = x_i^2 + y for 20 steps, out = x_20 over the curve's r:
+    instance [one, y, out], witness [x_0, ..., x_20] (dense index = IR
+    variable), with the witness of x_0 = 3, y = 7."""
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.ir.r1cs import R1CS
+    from zokrates_tpu_torch.ir.witness import Witness
+
+    p = P.SCALAR_FIELDS[curve].p
+    y, out, x = 1, 2, [3 + i for i in range(21)]
+    A = [[(x[i], 1)] for i in range(20)] + [[(x[20], 1)]]
+    B = [[(x[i], 1)] for i in range(20)] + [[(0, 1)]]
+    C = [[(x[i + 1], 1), (y, p - 1)] for i in range(20)] + [[(out, 1)]]
+    vals = {y: 7, x[0]: 3}
+    for i in range(20):
+        vals[x[i + 1]] = (vals[x[i]] ** 2 + 7) % p
+    vals[out] = vals[x[20]]
+    return R1CS(curve, 3, 21, A, B, C, {v: v for v in range(1, 24)}), Witness(vals)
+
+
+def run_bls12_377_toy(dev):
+    """Groth16 on BLS12-377 (Fq2 with u^2 = -5) on the card on the toy
+    circuit: setup, one proof that verifies, forgeries that do not, every
+    MSM kernel launched at 12 limbs."""
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.schemes import groth16 as g
+
+    curve = "bls12_377"
+    r1cs, wit = toy_r1cs(curve)
+    p = P.SCALAR_FIELDS[curve].p
+    rng = random.Random(SEED + 11)
+    clear_launches()
+    t0 = time.perf_counter()
+    pk, vk = g.setup(r1cs, rng=lambda: rng.randrange(1, p), device=dev)
+    t1 = time.perf_counter()
+    draws = iter([(SEED + 12) % p, (SEED + 13) % p])
+    proof = g.prove(r1cs, pk, wit, rng=lambda: next(draws), device=dev)
+    t2 = time.perf_counter()
+    ok = g.verify(vk, proof)
+    log(f"  {curve} toy circuit ({r1cs.num_constraints} constraints): setup {t1 - t0:.2f} s, prove "
+        f"{(t2 - t1) * 1e3:.1f} ms, verify: {ok}; 12-limb MSM launches {check_width(12, 'the BLS12-377 proof')}")
+    if not ok:
+        raise AssertionError("the BLS12-377 proof failed to verify")
+    check_forgeries(g, vk, proof, curve)
+
+
 def run_gm17_path(r1cs, wit, dev, smi):
     """GM17 on sha256: setup with a seeded rng, GM17_PROOFS proofs with
     distinct fixed r and their stage split, with the launch counts set to 0
@@ -1281,14 +1481,11 @@ def run_gm17_path(r1cs, wit, dev, smi):
     launch counts and the proving key."""
     import torch
     from zokrates_tpu_torch.fields import params as P
-    from zokrates_tpu_torch.kernels import msm_sorted, ntt_pallas, pallas_field
     from zokrates_tpu_torch.schemes import gm17
-    from zokrates_tpu_torch.schemes.types import Proof, fr_to_json
 
     p = P.SCALAR_FIELDS["bn128"].p
     rng = random.Random(SEED + 5)
-    for mod in (msm_sorted, pallas_field, ntt_pallas):
-        mod.LAUNCHES.clear()
+    clear_launches()
     t0 = time.perf_counter()
     pk, vk = gm17.setup(r1cs, rng=lambda: rng.randrange(1, p), device=dev)
     torch.cuda.synchronize()
@@ -1325,17 +1522,7 @@ def run_gm17_path(r1cs, wit, dev, smi):
             raise AssertionError(f"GM17 proof {i} failed to verify")
     if len({json.dumps(pr.points, sort_keys=True) for pr in proofs}) != len(proofs):
         raise AssertionError("GM17 proofs with distinct r are not distinct")
-    tampered = Proof.from_json(proofs[0].to_json())
-    tampered.points["a"], tampered.points["c"] = tampered.points["c"], tampered.points["a"]
-    wrong = Proof.from_json(proofs[0].to_json())
-    if not wrong.inputs:
-        raise AssertionError("the circuit has no public input to alter")
-    wrong.inputs[0] = fr_to_json((int(wrong.inputs[0], 16) + 1) % p, "bn128")
-    for name, bad in (("tampered (a <-> c)", tampered), ("wrong public input", wrong)):
-        ok = gm17.verify(vk, bad)
-        log(f"  verify {name}: {ok}")
-        if ok:
-            raise AssertionError(f"a GM17 proof with a {name} verified")
+    check_forgeries(gm17, vk, proofs[0], "bn128")
 
     steady = walls[1:]  # proof 0 carries the query packing and uploads
     split = {k: sum(t.get(k, 0.0) for t in splits[1:]) / len(steady) * 1e3 for k in splits[-1]}
@@ -1410,6 +1597,11 @@ def main():
     wits = batch_witnesses(prog)
     log(f"  {len(wits)} witnesses by the port's interpreter: {time.perf_counter() - t0:.1f} s")
     launches_batch = run_batch_path(r1cs, pk, vk, wits, dev, smi)
+    del wits
+
+    launches_bls, launches_bls_batch = run_bls12_381_path(dev, smi, records)
+    log("== BLS12-377: Groth16 on a toy circuit")
+    run_bls12_377_toy(dev)
 
     log("== GM17 path: setup, prove, verify (sha256 as a SAP, 2^16)")
     launches_gm17, gm17_pk = run_gm17_path(r1cs, wit, dev, smi)
@@ -1439,6 +1631,8 @@ def main():
             "launches": launches.get(name, 0),
             "launches_batch": launches_batch.get(name, 0),
             "launches_gm17": launches_gm17.get(name, 0),
+            "launches_bls12_381": launches_bls.get(name, 0),
+            "launches_bls12_381_batch": launches_bls_batch.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None,

@@ -14,6 +14,11 @@ and nvcc, from the root of a checkout:
 (--noconftest: the repository's conftest imports jax, which the card's
 machine need not have; this file imports nothing of the JAX package.)
 
+The sorted MSM's kernels also at 12 limbs, over Fq and Fq2 of BLS12-381
+(u^2 = -1) and BLS12-377 (u^2 = -5): the walk at every S through its C
+entry point, the suffix walk and the epilogue up to lw = 1024; and the C
+entry points' refusal of a width they have no instantiation of.
+
 Inputs: real curve points from seeded generators (with points at
 infinity), lane counts that are not multiples of the kernels' block size,
 the walk split into sub-chunks (many on few lanes, and every S through
@@ -182,14 +187,14 @@ def test_walk_kernel_at_every_split(dev, ext, mode, safe):
     if mode == "mixed" and not safe:
         assert ref_coll.tolist() == [int(l == lane) for l in range(L)]
     lib = cuda.load()
-    pl, one, n0, babs = cuda.field_params(Q, beta)
+    nl, pl, one, n0, babs = cuda.field_params(Q, beta)
     stream = torch.cuda.current_stream(dev).cuda_stream
     en = 32 if ext else 16
     for S in (1, 3, 7, 16, K):
         out = torch.full((K, 3 * en, L), -1, dtype=torch.int32, device=dev)
         coll = torch.zeros(L, dtype=torch.int32, device=dev)
         rc = lib.zkt_msm_walk(q.data_ptr(), flags.data_ptr(), out.data_ptr(), coll.data_ptr(), K, L, S,
-                              int(ext), int(mode == "mixed"), int(safe), pl, one, n0, babs, stream)
+                              nl, int(ext), int(mode == "mixed"), int(safe), pl, one, n0, babs, stream)
         cuda.check(rc, "walk")
         torch.cuda.synchronize()
         assert torch.equal(out, ref_out), f"S={S}"
@@ -208,6 +213,157 @@ def test_suffix_kernel_equals_plain(dev, ext):
     torch.cuda.synchronize()
     assert ms.LAUNCHES["suffix"] == before + 1
     assert torch.equal(out, ms.suffix_plain(a, b, Q, beta))
+
+
+# ---------------------------------------------------------------------------
+# the sorted MSM's kernels at 12 limbs (BLS12-381, BLS12-377)
+# ---------------------------------------------------------------------------
+
+BLS12 = ("bls12_381", "bls12_377")
+
+
+def _rows12(curve, ext, seed, n=6):
+    """As _rows for a BLS12 curve: (affine rows, Jacobian rows with Z
+    within 2^8 of q and a point at infinity last), its q and beta."""
+    rng = random.Random(seed)
+    grp = g2_group(curve) if ext else g1_group(curve)
+    q = grp.q
+    beta = grp.tower.beta - q if ext else None
+    f = field_ops2(q, beta) if ext else field_ops(q)
+    pts = [grp.generator() * rng.randrange(1, grp.r) for _ in range(n)]
+    pts += [-p for p in pts]
+    co = (lambda v: (v.c0, v.c1)) if ext else (lambda v: v)
+
+    def enc(vals):
+        return f.encode([co(v) for v in vals]).reshape(len(vals), -1).to(torch.int32)
+
+    X, Y, Z = [], [], []
+    for p in pts:
+        z = q - rng.randrange(1, 1 << 8)
+        z = Fq2(grp.tower, z, rng.randrange(q)) if ext else z
+        X.append(p.x * z * z if ext else p.x * z * z % q)
+        Y.append(p.y * z * z * z if ext else p.y * z ** 3 % q)
+        Z.append(z)
+    X.append(pts[0].x)
+    Y.append(pts[0].y)
+    Z.append(Fq2(grp.tower, 0, 0) if ext else 0)
+    affine = torch.cat([enc([p.x for p in pts]), enc([p.y for p in pts])], 1)
+    return affine, torch.cat([enc(X), enc(Y), enc(Z)], 1), q, beta
+
+
+@pytest.mark.parametrize("ext,mode,safe", [(False, "mixed", False), (False, "mixed", True), (False, "general", True),
+                                           (True, "mixed", False), (True, "mixed", True), (True, "general", True)],
+                         ids=["Fq-mixed-unsafe", "Fq-mixed-safe", "Fq-general", "Fq2-mixed-unsafe",
+                              "Fq2-mixed-safe", "Fq2-general"])
+@pytest.mark.parametrize("curve", BLS12)
+def test_walk_kernel_12_limbs_at_every_split(dev, curve, ext, mode, safe):
+    """The 12-limb walk through the wrapper (one launch, counted) and through
+    its C entry point at S = 1, 3, 7, 16 and K, each bit-equal to
+    walk_plain, over the flag patterns of test_torch_walk_split; in the
+    unsafe walks a doubling planted in lane 0 sets coll there."""
+    from test_torch_walk_split import _patterns
+
+    from zokrates_tpu_torch.kernels import cuda
+
+    K, L = 24, 160
+    affine, jac, q, beta = _rows12(curve, ext, seed=70 + ext)
+    rng = np.random.default_rng(71)
+    flags = ((rng.random((K, L)) < 0.15).astype(np.int32) | ((rng.random((K, L)) < 0.1).astype(np.int32) << 1))
+    cols = list(_patterns(K, rng).values())
+    flags[:, 1 : 1 + len(cols)] = np.stack(cols, 1)
+    src = affine if mode == "mixed" else jac
+    idx = rng.integers(0, src.shape[0], (K, L))
+    flags[:2, 0] = 0
+    idx[:2, 0] = 0  # a doubling in lane 0
+    qrows = src[torch.as_tensor(idx)].permute(0, 2, 1).contiguous().to(dev)
+    fl = torch.as_tensor(flags).to(dev)
+    ref_out, ref_coll = ms.walk_plain(qrows, fl, q, mode, safe, beta)
+    assert bool(ref_coll[0]) == (mode == "mixed" and not safe)
+    before = ms.LAUNCHES["walk_" + mode]
+    out, coll = ms.walk(qrows, fl, q, mode, safe, beta)
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["walk_" + mode] == before + 1
+    assert torch.equal(out, ref_out) and torch.equal(coll, ref_coll)
+    lib = cuda.load()
+    nl, pl, one, n0, babs = cuda.field_params(q, beta)
+    assert nl == 12
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for S in (1, 3, 7, 16, K):
+        out = torch.full_like(ref_out, -1)
+        coll = torch.zeros(L, dtype=torch.int32, device=dev)
+        rc = lib.zkt_msm_walk(qrows.data_ptr(), fl.data_ptr(), out.data_ptr(), coll.data_ptr(), K, L, S,
+                              nl, int(ext), int(mode == "mixed"), int(safe), pl, one, n0, babs, stream)
+        cuda.check(rc, "walk")
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref_out), f"S={S}"
+        assert torch.equal(coll, ref_coll), f"S={S}"
+
+
+@pytest.mark.parametrize("ext", [False, True], ids=["Fq", "Fq2"])
+@pytest.mark.parametrize("curve", BLS12)
+def test_suffix_kernel_12_limbs_equals_plain(dev, curve, ext):
+    _, jac, q, beta = _rows12(curve, ext, seed=72 + ext)
+    rng = np.random.default_rng(73)
+    Lb, M = 5, 200
+    a, b = _gather(jac, (Lb, M), rng).to(dev), _gather(jac, (Lb, M), rng).to(dev)
+    before = ms.LAUNCHES["suffix"]
+    out = ms.suffix(a, b, q, beta)
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["suffix"] == before + 1
+    assert torch.equal(out, ms.suffix_plain(a, b, q, beta))
+
+
+@pytest.mark.parametrize("lw,W,L", [(1, 3, 5), (8, 3, 5), (128, 2, 1), (1024, 1, 32)])
+@pytest.mark.parametrize("ext", [False, True], ids=["Fq", "Fq2"])
+@pytest.mark.parametrize("curve", BLS12)
+def test_suffix_fold_kernel_12_limbs_equals_plain(dev, curve, ext, lw, W, L):
+    """The 12-limb epilogue at lw = 1 (no tree) up to 1024 (the tree's
+    widest level: 256 threads, two adds each, at the Fq2 instantiation's
+    255 registers a thread), with about a fifth of the lanes' acc and tot
+    at infinity."""
+    _, jac, q, beta = _rows12(curve, ext, seed=74 + ext)
+    rng = np.random.default_rng(75 + lw)
+    inf = jac.shape[0] - 1
+    idx = rng.integers(0, jac.shape[0], (2, W * lw))
+    idx[rng.random((2, W * lw)) < 0.2] = inf
+    out6 = torch.cat([jac[torch.as_tensor(idx[0])], jac[torch.as_tensor(idx[1])]], 1).T.contiguous().to(dev)
+    before = ms.LAUNCHES["suffix_fold"]
+    got = ms.suffix_fold(out6, q, W, lw, L, beta)
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["suffix_fold"] == before + 1
+    want = ms.suffix_fold_plain(out6, q, W, lw, L, beta)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_msm_entry_points_refuse_unknown_widths(dev):
+    """A limb count with no instantiation (10) launches nothing: each C
+    entry point returns an error code, which cuda.check raises; and the
+    wrappers refuse a 48-limb field (BW6-761) before any launch."""
+    from zokrates_tpu_torch.kernels import cuda
+
+    lib = cuda.load()
+    _, pl, one, n0, babs = cuda.field_params(Q, None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    buf = torch.zeros(1 << 16, dtype=torch.int32, device=dev)
+    wide = torch.zeros(1 << 14, dtype=torch.int64, device=dev)
+    p = buf.data_ptr()
+    calls = {
+        "walk": lambda: lib.zkt_msm_walk(p, p, p, p, 1, 1, 1, 10, 0, 1, 1, pl, one, n0, babs, stream),
+        "suffix": lambda: lib.zkt_msm_suffix(p, p, p, 1, 1, 10, 0, pl, one, n0, babs, stream),
+        "suffix_fold": lambda: lib.zkt_msm_suffix_fold(p, p, wide.data_ptr(), 1, 1, 1, 10, 0, pl, one, n0, babs,
+                                                       stream),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name} launch failed"):
+            cuda.check(call(), name)
+    torch.cuda.synchronize()
+    bw6 = g1_group("bw6_761").q
+    before = dict(ms.LAUNCHES)
+    with pytest.raises(ValueError, match="16 or 24 16-bit limbs, got nl=48"):
+        ms.walk(torch.zeros((1, 96, 4), dtype=torch.int32, device=dev),
+                torch.zeros((1, 4), dtype=torch.int32, device=dev), bw6, "mixed", True)
+    assert dict(ms.LAUNCHES) == before
 
 
 def test_wrappers_refuse_mixed_devices(dev):

@@ -27,6 +27,9 @@ PK_ARRAYS = (
 # carried when present: the shared-bucket h query (None on a key the JAX
 # package made off a TPU)
 PK_OPTIONAL = ("h16_p128",)
+# the b2 query's coordinates, carried where b2_p128 is None (a packed G2 row
+# over 128 words: the BLS12 curves)
+PK_B2_XY = ("b2_x", "b2_y")
 PK_G1 = ("alpha_g1", "beta_g1", "delta_g1")
 PK_G2 = ("beta_g2", "delta_g2")
 
@@ -51,13 +54,17 @@ def proving_key(curve: str, domain_size: int, num_instance: int,
     """points: PK_G1 names -> (x, y) ints, PK_G2 names -> ((x0, x1),
     (y0, y1)) ints. arrays: PK_ARRAYS names -> numpy arrays in the JAX
     package's layout (uint32 packed rows, bool masks, uint32 weights);
-    PK_OPTIONAL names may be absent or None."""
-    missing = [k for k in PK_ARRAYS if k not in arrays] + [
-        k for k in PK_G1 + PK_G2 if k not in points
-    ]
+    PK_OPTIONAL names may be absent or None; b2_p128 may be None, and then
+    PK_B2_XY names give the b2 query's coordinates ((m, 2, nl) uint32)."""
+    wide = arrays.get("b2_p128", ()) is None
+    need = [k for k in PK_ARRAYS if not (wide and k == "b2_p128")] + list(PK_B2_XY if wide else ())
+    missing = [k for k in need if k not in arrays] + [k for k in PK_G1 + PK_G2 if k not in points]
     if missing:
         raise KeyError(f"proving key fields missing: {missing}")
-    kw = {k: np.array(arrays[k], copy=True) for k in PK_ARRAYS}
+    kw = {k: np.array(arrays[k], copy=True) for k in PK_ARRAYS if not (wide and k == "b2_p128")}
+    if wide:
+        kw["b2_p128"] = None
+        kw["b2_xy"] = tuple(np.array(arrays[k], copy=True) for k in PK_B2_XY)
     kw.update({k: np.array(arrays[k], copy=True) for k in PK_OPTIONAL if arrays.get(k) is not None})
     kw.update({k: g1_point(curve, points[k]) for k in PK_G1})
     kw.update({k: g2_point(curve, points[k]) for k in PK_G2})

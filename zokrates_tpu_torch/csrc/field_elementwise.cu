@@ -43,25 +43,25 @@ __global__ void __launch_bounds__(kThreads) emul_kernel(const int64_t* __restric
                                                          int64_t* __restrict__ out, long long L,
                                                          long long total, long long a_bs,
                                                          long long b_bs, long long b_rs,
-                                                         FieldParams P) {
+                                                         FieldParams8 P) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const long long bi = i / L;
   const long long r = i - bi * L;
-  const Fq x = load_wide(a + bi * a_bs + r * kWords);
-  const Fq y = load_wide(b + bi * b_bs + r * b_rs);
+  const Fq8 x = load_wide(a + bi * a_bs + r * kWords);
+  const Fq8 y = load_wide(b + bi * b_bs + r * b_rs);
   store_wide(out + i * kWords, mul(x, y, P));
 }
 
 __global__ void __launch_bounds__(kThreads) ereduce_kernel(const int64_t* __restrict__ t,
                                                             int64_t* __restrict__ out,
-                                                            long long total, Fq r2, FieldParams P) {
+                                                            long long total, Fq8 r2, FieldParams8 P) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const longlong2* src = reinterpret_cast<const longlong2*>(t + i * kWords);
   // carry sweep: nonnegative words < 2^63 never overflow the 64-bit carry
   uint64_t c = 0;
-  Fq res;
+  Fq8 res;
 #pragma unroll
   for (int k = 0; k < NL; ++k) {
     const longlong2 w = __ldg(src + k);
@@ -73,7 +73,7 @@ __global__ void __launch_bounds__(kThreads) ereduce_kernel(const int64_t* __rest
     c >>= 16;
     res.v[k] = lo | (hi << 16);
   }
-  Fq emb;
+  Fq8 emb;
   set_zero(emb);
   emb.v[0] = (uint32_t)c;
   emb.v[1] = (uint32_t)(c >> 32);
@@ -92,7 +92,7 @@ extern "C" {
 int zkt_emul(const int64_t* a, const int64_t* b, int64_t* out, long long B, long long L,
              long long a_bs, long long b_bs, long long b_rs, const uint32_t* p,
              const uint32_t* one, uint32_t n0, void* stream) {
-  const FieldParams P = make_params(p, one, n0, 0);
+  const FieldParams8 P = make_params<NL>(p, one, n0, 0);
   const long long total = B * L;
   emul_kernel<<<grid_of(total), kThreads, 0, (cudaStream_t)stream>>>(a, b, out, L, total, a_bs,
                                                                      b_bs, b_rs, P);
@@ -102,8 +102,8 @@ int zkt_emul(const int64_t* a, const int64_t* b, int64_t* out, long long B, long
 // t, out: `total` packed elements; r2 = R^2 mod p as NL 32-bit limbs.
 int zkt_ereduce_wide(const int64_t* t, int64_t* out, long long total, const uint32_t* r2,
                      const uint32_t* p, const uint32_t* one, uint32_t n0, void* stream) {
-  const FieldParams P = make_params(p, one, n0, 0);
-  Fq r2v;
+  const FieldParams8 P = make_params<NL>(p, one, n0, 0);
+  Fq8 r2v;
   for (int i = 0; i < NL; ++i) r2v.v[i] = r2[i];
   ereduce_kernel<<<grid_of(total), kThreads, 0, (cudaStream_t)stream>>>(t, out, total, r2v, P);
   return (int)cudaGetLastError();

@@ -11,9 +11,10 @@
 // What bounds them on an H100: 32-bit integer multiplies. A mixed add is
 // 11 Montgomery products (also 11 when it doubles: 4 before the branch, 7
 // in it), a complete add 16 (15 when it doubles), an Fq2 product three Fq
-// products, and one 8-limb CIOS product 136 32x32->64 products (264
-// 32-bit multiply results, low and high halves). The inputs are read once
-// and each walk position's snapshot written once, a few hundred bytes per
+// products, and one N-limb CIOS product N*(2N+1) 32x32 products (N*(4N+1)
+// 32-bit multiply results, low and high halves: 264 at N = 8, 588 at
+// N = 12). The inputs are read once and each walk position's snapshot
+// written once, a few hundred bytes per
 // point op against tens of thousands of multiply instructions: far on
 // the operations side of the roofline.
 //
@@ -60,12 +61,14 @@
 // rate, bounds a lane); each writes tot + base*acc to a scratch row.
 // fold_tree_kernel: one block per window adds the lane sums by the
 // pairwise halving tree, one thread per add at every level up to 256
-// threads (two adds a thread at the top level of lw = 1024), in shared
-// memory (lw/2 * 96 B for Fq, lw/2 * 192 B for Fq2: 48 KB / 96 KB at
-// lw = 1024). Both follow the plain version's ladder and its tree
-// a[:s] + a[s:2s] exactly, so the window sums equal the plain version's
-// limb for limb; the TPU's rotation tree adds in another order and agrees
-// with both as a group element.
+// threads (two adds a thread at the top level of lw = 1024; at the Fq2
+// instantiations' 255 registers a thread, 256 threads take all of an SM's
+// 65,536), in shared memory (lw/2 * 12N B for Fq, lw/2 * 24N B for Fq2: at
+// lw = 1024, 48 KB / 96 KB for N = 8, 72 KB / 144 KB for N = 12). Both
+// follow the plain version's ladder and its tree a[:s] + a[s:2s] exactly,
+// so the window sums equal the plain version's limb for limb; the TPU's
+// rotation tree adds in another order and agrees with both as a group
+// element.
 //
 // Layout (int32 rows of 16-bit Montgomery limbs, as the reference):
 //   walk:   q     (K, IN_ROWS, L)  affine [x|y] (mixed) or Jacobian [X|Y|Z]
@@ -78,10 +81,16 @@
 //                                  [w*lw, (w+1)*lw)
 //           sums  (3*ER, G*lw)     scratch: the lane sums tot + base*acc
 //           out   (3, G, ER)       int64 words of 16-bit limbs: X, Y, Z
-// ER = 16 rows per Fq coordinate, 32 per Fq2 coordinate ([c0 | c1]).
+// ER = 2N rows per Fq coordinate, 4N per Fq2 coordinate ([c0 | c1]).
+//
+// Widths: every kernel is instantiated for N = 8 (BN254's base field) and
+// N = 12 (the base fields of BLS12-381 and BLS12-377), over Fq<N> and
+// Fq2<N>; the C entry points take N and dispatch on it.
 //
 // Interface: plain C functions (ctypes), launched on the caller's stream;
-// each returns cudaGetLastError() right after its launch.
+// each returns cudaGetLastError() right after its launch, or
+// cudaErrorInvalidValue, launching nothing, for a width it has no
+// instantiation of.
 
 #include <cuda_runtime.h>
 
@@ -114,7 +123,7 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(const int32_t* __restric
                                                          const int32_t* __restrict__ flags,
                                                          int32_t* __restrict__ out,
                                                          int32_t* __restrict__ coll, int K, int L,
-                                                         int S, FieldParams P) {
+                                                         int S, FieldParams<E::kN> P) {
   constexpr int ER = Rows<E>::value;
   constexpr int IN_ROWS = MIXED ? 2 * ER : 3 * ER;
   const size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -184,7 +193,7 @@ template <class E>
 __global__ void __launch_bounds__(kThreads) suffix_kernel(const int32_t* __restrict__ a,
                                                            const int32_t* __restrict__ b,
                                                            int32_t* __restrict__ out, int Lb, int M,
-                                                           FieldParams P) {
+                                                           FieldParams<E::kN> P) {
   const size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= (size_t)M) return;
   constexpr int ER = Rows<E>::value;
@@ -209,12 +218,12 @@ __global__ void __launch_bounds__(kThreads) suffix_kernel(const int32_t* __restr
 // two or three places, and inlining the Fq2 add at each multiplies the
 // code that ptxas allocates registers over (and its compile time).
 template <class E>
-__device__ __noinline__ Jac<E> fold_add(const Jac<E>& a, const Jac<E>& b, const FieldParams& P) {
+__device__ __noinline__ Jac<E> fold_add(const Jac<E>& a, const Jac<E>& b, const FieldParams<E::kN>& P) {
   return ec_add(a, b, P);
 }
 
 template <class E>
-__device__ __noinline__ Jac<E> fold_double(const Jac<E>& a, const FieldParams& P) {
+__device__ __noinline__ Jac<E> fold_double(const Jac<E>& a, const FieldParams<E::kN>& P) {
   return ec_double(a, P);
 }
 
@@ -227,7 +236,7 @@ template <class E>
 __global__ void __launch_bounds__(kLadderThreads) fold_ladder_kernel(const int32_t* __restrict__ in,
                                                                       int32_t* __restrict__ sums,
                                                                       int M, int lw, int L,
-                                                                      FieldParams P) {
+                                                                      FieldParams<E::kN> P) {
   const size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= (size_t)M) return;
   constexpr int ER = Rows<E>::value;
@@ -255,7 +264,7 @@ __global__ void __launch_bounds__(kLadderThreads) fold_ladder_kernel(const int32
 template <class E>
 __global__ void __launch_bounds__(kTreeThreads) fold_tree_kernel(const int32_t* __restrict__ sums,
                                                                   int64_t* __restrict__ out, int G,
-                                                                  int lw, FieldParams P) {
+                                                                  int lw, FieldParams<E::kN> P) {
   extern __shared__ __align__(16) unsigned char fold_smem[];
   Jac<E>* lanes = reinterpret_cast<Jac<E>*>(fold_smem);
   const size_t M = (size_t)G * lw;
@@ -287,7 +296,7 @@ __global__ void __launch_bounds__(kTreeThreads) fold_tree_kernel(const int32_t* 
 
 template <class E>
 int launch_suffix_fold(const int32_t* in, int32_t* sums, int64_t* out, int G, int lw, int L,
-                       const FieldParams& P, cudaStream_t s) {
+                       const FieldParams<E::kN>& P, cudaStream_t s) {
   const int M = G * lw;
   fold_ladder_kernel<E><<<(M + kLadderThreads - 1) / kLadderThreads, kLadderThreads, 0, s>>>(
       in, sums, M, lw, L, P);
@@ -307,7 +316,7 @@ int launch_suffix_fold(const int32_t* in, int32_t* sums, int64_t* out, int G, in
 
 template <class E>
 void launch_walk(const int32_t* q, const int32_t* flags, int32_t* out, int32_t* coll, int K, int L,
-                 int S, int mixed, int safe, const FieldParams& P, cudaStream_t s) {
+                 int S, int mixed, int safe, const FieldParams<E::kN>& P, cudaStream_t s) {
   dim3 grid((L + kThreads - 1) / kThreads, (K + S - 1) / S);
   if (mixed && safe)
     walk_kernel<E, true, true><<<grid, kThreads, 0, s>>>(q, flags, out, coll, K, L, S, P);
@@ -317,49 +326,75 @@ void launch_walk(const int32_t* q, const int32_t* flags, int32_t* out, int32_t* 
     walk_kernel<E, false, true><<<grid, kThreads, 0, s>>>(q, flags, out, coll, K, L, S, P);
 }
 
+template <int N>
+int walk_at(const int32_t* q, const int32_t* flags, int32_t* out, int32_t* coll, int K, int L, int S,
+            int ext, int mixed, int safe, const uint32_t* p, const uint32_t* one, uint32_t n0,
+            int beta_abs, cudaStream_t s) {
+  const FieldParams<N> P = make_params<N>(p, one, n0, beta_abs);
+  if (ext)
+    launch_walk<Fq2<N>>(q, flags, out, coll, K, L, S, mixed, safe, P, s);
+  else
+    launch_walk<Fq<N>>(q, flags, out, coll, K, L, S, mixed, safe, P, s);
+  return (int)cudaGetLastError();
+}
+
+template <int N>
+int suffix_at(const int32_t* a, const int32_t* b, int32_t* out, int Lb, int M, int ext,
+              const uint32_t* p, const uint32_t* one, uint32_t n0, int beta_abs, cudaStream_t s) {
+  const FieldParams<N> P = make_params<N>(p, one, n0, beta_abs);
+  dim3 grid((M + kThreads - 1) / kThreads);
+  if (ext)
+    suffix_kernel<Fq2<N>><<<grid, kThreads, 0, s>>>(a, b, out, Lb, M, P);
+  else
+    suffix_kernel<Fq<N>><<<grid, kThreads, 0, s>>>(a, b, out, Lb, M, P);
+  return (int)cudaGetLastError();
+}
+
+template <int N>
+int suffix_fold_at(const int32_t* in, int32_t* sums, int64_t* out, int G, int lw, int L, int ext,
+                   const uint32_t* p, const uint32_t* one, uint32_t n0, int beta_abs,
+                   cudaStream_t s) {
+  const FieldParams<N> P = make_params<N>(p, one, n0, beta_abs);
+  if (ext) return launch_suffix_fold<Fq2<N>>(in, sums, out, G, lw, L, P, s);
+  return launch_suffix_fold<Fq<N>>(in, sums, out, G, lw, L, P, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Field constants: p and one as NL little-endian 32-bit limbs, n0 =
-// -p^-1 mod 2^32, beta_abs = |u^2| for Fq2 (ext != 0). mixed=0 requires
-// safe != 0 (the record-merge walk always uses complete adds). S: the
-// positions of a sub-chunk, 1 <= S <= K, (K + S - 1) / S <= 65535; coll
-// must hold zeros (threads only set it).
+// Field constants: nl 32-bit limbs per element (8 or 12), p and one as nl
+// little-endian 32-bit limbs, n0 = -p^-1 mod 2^32, beta_abs = |u^2| for
+// Fq2 (ext != 0). mixed=0 requires safe != 0 (the record-merge walk always
+// uses complete adds). S: the positions of a sub-chunk, 1 <= S <= K,
+// (K + S - 1) / S <= 65535; coll must hold zeros (threads only set it).
 int zkt_msm_walk(const int32_t* q, const int32_t* flags, int32_t* out, int32_t* coll, int K, int L,
-                 int S, int ext, int mixed, int safe, const uint32_t* p, const uint32_t* one,
+                 int S, int nl, int ext, int mixed, int safe, const uint32_t* p, const uint32_t* one,
                  uint32_t n0, int beta_abs, void* stream) {
-  FieldParams P = make_params(p, one, n0, beta_abs);
   cudaStream_t s = (cudaStream_t)stream;
-  if (ext)
-    launch_walk<Fq2>(q, flags, out, coll, K, L, S, mixed, safe, P, s);
-  else
-    launch_walk<Fq>(q, flags, out, coll, K, L, S, mixed, safe, P, s);
-  return (int)cudaGetLastError();
+  if (nl == 8) return walk_at<8>(q, flags, out, coll, K, L, S, ext, mixed, safe, p, one, n0, beta_abs, s);
+  if (nl == 12) return walk_at<12>(q, flags, out, coll, K, L, S, ext, mixed, safe, p, one, n0, beta_abs, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-int zkt_msm_suffix(const int32_t* a, const int32_t* b, int32_t* out, int Lb, int M, int ext,
+int zkt_msm_suffix(const int32_t* a, const int32_t* b, int32_t* out, int Lb, int M, int nl, int ext,
                    const uint32_t* p, const uint32_t* one, uint32_t n0, int beta_abs, void* stream) {
-  FieldParams P = make_params(p, one, n0, beta_abs);
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid((M + kThreads - 1) / kThreads);
-  if (ext)
-    suffix_kernel<Fq2><<<grid, kThreads, 0, s>>>(a, b, out, Lb, M, P);
-  else
-    suffix_kernel<Fq><<<grid, kThreads, 0, s>>>(a, b, out, Lb, M, P);
-  return (int)cudaGetLastError();
+  if (nl == 8) return suffix_at<8>(a, b, out, Lb, M, ext, p, one, n0, beta_abs, s);
+  if (nl == 12) return suffix_at<12>(a, b, out, Lb, M, ext, p, one, n0, beta_abs, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // in: the suffix kernel's (6*ER, G*lw) [acc | tot] rows; sums: (3*ER,
 // G*lw) scratch; out: (3, G, ER) int64 window sums. lw is a power of two
 // <= 1024.
 int zkt_msm_suffix_fold(const int32_t* in, int32_t* sums, int64_t* out, int G, int lw, int L,
-                        int ext, const uint32_t* p, const uint32_t* one, uint32_t n0, int beta_abs,
-                        void* stream) {
-  FieldParams P = make_params(p, one, n0, beta_abs);
+                        int nl, int ext, const uint32_t* p, const uint32_t* one, uint32_t n0,
+                        int beta_abs, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (ext) return launch_suffix_fold<Fq2>(in, sums, out, G, lw, L, P, s);
-  return launch_suffix_fold<Fq>(in, sums, out, G, lw, L, P, s);
+  if (nl == 8) return suffix_fold_at<8>(in, sums, out, G, lw, L, ext, p, one, n0, beta_abs, s);
+  if (nl == 12) return suffix_fold_at<12>(in, sums, out, G, lw, L, ext, p, one, n0, beta_abs, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* zkt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -51,7 +51,7 @@ __global__ void __launch_bounds__(kThreads) mulacc_kernel(const int64_t* __restr
                                                            const int64_t* __restrict__ coeff,
                                                            const int32_t* __restrict__ flags,
                                                            int64_t* __restrict__ out, int B, int K,
-                                                           int M, FieldParams P) {
+                                                           int M, FieldParams8 P) {
   const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (tid >= (size_t)B * M) return;
   const size_t b = tid / M;
@@ -64,13 +64,13 @@ __global__ void __launch_bounds__(kThreads) mulacc_kernel(const int64_t* __restr
   for (int i = 0; i < kLimbs; ++i) acc[i] = 0;
   for (int k = 0; k < K; ++k) {
     const size_t row = (size_t)k * kLimbs * Ms + m;
-    Fq x, c;
+    Fq8 x, c;
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
       x.v[i] = limb(zb + row + (2 * i) * Ms) | (limb(zb + row + (2 * i + 1) * Ms) << 16);
       c.v[i] = limb(coeff + row + (2 * i) * Ms) | (limb(coeff + row + (2 * i + 1) * Ms) << 16);
     }
-    const Fq prod = mul(x, c, P);
+    const Fq8 prod = mul(x, c, P);
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
       acc[2 * i] += prod.v[i] & 0xFFFFu;
@@ -95,7 +95,7 @@ extern "C" {
 int zkt_mulacc_walk(const int64_t* z, const int64_t* coeff, const int32_t* flags, int64_t* out,
                     int B, int K, int M, const uint32_t* p, const uint32_t* one, uint32_t n0,
                     void* stream) {
-  const FieldParams P = make_params(p, one, n0, 0);
+  const FieldParams8 P = make_params<NL>(p, one, n0, 0);
   const long long total = (long long)B * M;
   const unsigned grid = (unsigned)((total + kThreads - 1) / kThreads);
   mulacc_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(z, coeff, flags, out, B, K, M, P);

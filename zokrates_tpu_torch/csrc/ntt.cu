@@ -49,7 +49,7 @@ template <bool IN_WIDE, bool OUT_WIDE>
 __global__ void __launch_bounds__(kMaxThreads) ntt_pass_kernel(const void* src, void* dst,
                                                                 const uint32_t* __restrict__ tw,
                                                                 int logn, int s0, int s1, int logT,
-                                                                FieldParams P) {
+                                                                FieldParams8 P) {
   extern __shared__ uint32_t ntt_smem[];  // [NL][T]
   const int T = 1 << logT;
   const int logC = logT - (s1 - s0);
@@ -64,7 +64,7 @@ __global__ void __launch_bounds__(kMaxThreads) ntt_pass_kernel(const void* src, 
 
   for (int e = threadIdx.x; e < T; e += blockDim.x) {
     const size_t g = base | ((size_t)(e >> logC) << s0) | (size_t)(e & (C - 1));
-    Fq x;
+    Fq8 x;
     if (IN_WIDE) {
       const size_t gs = __brevll(g) >> (64 - logn);  // bit-reversed source
       x = load_wide(static_cast<const int64_t*>(src) + (bat * n + gs) * (2 * NL));
@@ -87,16 +87,16 @@ __global__ void __launch_bounds__(kMaxThreads) ntt_pass_kernel(const void* src, 
       const int ie = ((((hp >> t) << (t + 1)) | hj) << logC) | c;
       const int io = ie + (1 << (t + logC));
       const size_t j = ((size_t)hj << s0) | lo0 | (size_t)c;
-      Fq xe, xo, w;
+      Fq8 xe, xo, w;
 #pragma unroll
       for (int q = 0; q < NL; ++q) {
         xe.v[q] = ntt_smem[q * T + ie];
         xo.v[q] = ntt_smem[q * T + io];
         w.v[q] = __ldg(tw + q * tw_n + off + j);
       }
-      const Fq u = mul(xo, w, P);
-      const Fq ye = add(xe, u, P);
-      const Fq yo = sub(xe, u, P);
+      const Fq8 u = mul(xo, w, P);
+      const Fq8 ye = add(xe, u, P);
+      const Fq8 yo = sub(xe, u, P);
 #pragma unroll
       for (int q = 0; q < NL; ++q) {
         ntt_smem[q * T + ie] = ye.v[q];
@@ -108,7 +108,7 @@ __global__ void __launch_bounds__(kMaxThreads) ntt_pass_kernel(const void* src, 
 
   for (int e = threadIdx.x; e < T; e += blockDim.x) {
     const size_t g = base | ((size_t)(e >> logC) << s0) | (size_t)(e & (C - 1));
-    Fq y;
+    Fq8 y;
 #pragma unroll
     for (int q = 0; q < NL; ++q) y.v[q] = ntt_smem[q * T + e];
     if (OUT_WIDE) {
@@ -133,7 +133,7 @@ extern "C" {
 int zkt_ntt_pass(const int64_t* x, int64_t* y, uint32_t* scratch, const uint32_t* tw, int batch,
                  int logn, int s0, int s1, int logT, const uint32_t* p, const uint32_t* one,
                  uint32_t n0, void* stream) {
-  const FieldParams P = make_params(p, one, n0, 0);
+  const FieldParams8 P = make_params<NL>(p, one, n0, 0);
   const bool in_wide = s0 == 0;
   const bool out_wide = s1 == logn;
   const void* src = in_wide ? (const void*)x : (const void*)scratch;

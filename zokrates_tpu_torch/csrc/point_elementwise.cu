@@ -22,7 +22,7 @@
 // the wrapper checks that it divides the lane count). The layout is
 // limb-major, [limb][lane], so for each limb a warp loads and stores 32
 // consecutive words; limbs are packed into field.cuh's 8 x 32-bit form and
-// split back at the store. The add is field.cuh's ec_mixed_add<Fq, true>,
+// split back at the store. The add is field.cuh's ec_mixed_add<Fq8, true>,
 // the complete mixed add of the MSM walk: p_inf -> (Qx, Qy, one), P == Q
 // doubles, P == -Q gives Z = 0, in the order of the plain
 // _mixed_add_inline, so results are bit-equal to it.
@@ -50,25 +50,25 @@ using namespace zkt;
 
 namespace {
 
-constexpr int ER = Rows<Fq>::value;  // 16 limb rows per coordinate
+constexpr int ER = Rows<Fq8>::value;  // 16 limb rows per coordinate
 
 __global__ void mixed_add_kernel(const int32_t* __restrict__ X, const int32_t* __restrict__ Y,
                                  const int32_t* __restrict__ Z, const int32_t* __restrict__ Qx,
                                  const int32_t* __restrict__ Qy, int32_t* __restrict__ oX,
                                  int32_t* __restrict__ oY, int32_t* __restrict__ oZ, int N,
-                                 FieldParams P) {
+                                 FieldParams8 P) {
   const size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= (size_t)N) return;
   const size_t Ns = (size_t)N;
-  Jac<Fq> A;
-  Fq qx, qy;
+  Jac<Fq8> A;
+  Fq8 qx, qy;
   load(A.X, X, 0, Ns, lane);
   load(A.Y, Y, 0, Ns, lane);
   load(A.Z, Z, 0, Ns, lane);
   load(qx, Qx, 0, Ns, lane);
   load(qy, Qy, 0, Ns, lane);
   bool is_dbl;
-  const Jac<Fq> S = ec_mixed_add<Fq, true>(A, qx, qy, is_dbl, P);
+  const Jac<Fq8> S = ec_mixed_add<Fq8, true>(A, qx, qy, is_dbl, P);
   store(oX, 0, Ns, lane, S.X);
   store(oY, 0, Ns, lane, S.Y);
   store(oZ, 0, Ns, lane, S.Z);
@@ -81,11 +81,11 @@ __global__ void accumulate_kernel(const int32_t* __restrict__ digits,
                                   const int32_t* __restrict__ Qx, const int32_t* __restrict__ Qy,
                                   int32_t* __restrict__ bX, int32_t* __restrict__ bY,
                                   int32_t* __restrict__ bZ, int chunk_len, int R, int n_buckets,
-                                  FieldParams P) {
+                                  FieldParams8 P) {
   const size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= (size_t)R) return;
   const size_t Rs = (size_t)R;
-  Fq zero;
+  Fq8 zero;
   set_zero(zero);
   for (int b = 0; b < n_buckets; ++b) {
     store(bX, (size_t)b * ER, Rs, lane, P.one);
@@ -96,15 +96,15 @@ __global__ void accumulate_kernel(const int32_t* __restrict__ digits,
     const uint32_t d = (uint32_t)__ldg(digits + (size_t)t * Rs + lane);
     if (d == 0 || d >= (uint32_t)n_buckets) continue;
     const size_t row = (size_t)d * ER;
-    Jac<Fq> B;
-    Fq qx, qy;
+    Jac<Fq8> B;
+    Fq8 qx, qy;
     load(B.X, bX, row, Rs, lane);
     load(B.Y, bY, row, Rs, lane);
     load(B.Z, bZ, row, Rs, lane);
     load(qx, Qx, (size_t)t * ER, Rs, lane);
     load(qy, Qy, (size_t)t * ER, Rs, lane);
     bool is_dbl;
-    B = ec_mixed_add<Fq, true>(B, qx, qy, is_dbl, P);
+    B = ec_mixed_add<Fq8, true>(B, qx, qy, is_dbl, P);
     store(bX, row, Rs, lane, B.X);
     store(bY, row, Rs, lane, B.Y);
     store(bZ, row, Rs, lane, B.Z);
@@ -123,7 +123,7 @@ extern "C" {
 int zkt_mixed_add_lm(const int32_t* X, const int32_t* Y, const int32_t* Z, const int32_t* Qx,
                      const int32_t* Qy, int32_t* oX, int32_t* oY, int32_t* oZ, int N, int block,
                      const uint32_t* p, const uint32_t* one, uint32_t n0, void* stream) {
-  const FieldParams P = make_params(p, one, n0, 0);
+  const FieldParams8 P = make_params<NL>(p, one, n0, 0);
   mixed_add_kernel<<<grid_of(N, block), block, 0, (cudaStream_t)stream>>>(X, Y, Z, Qx, Qy, oX, oY,
                                                                           oZ, N, P);
   return (int)cudaGetLastError();
@@ -132,7 +132,7 @@ int zkt_mixed_add_lm(const int32_t* X, const int32_t* Y, const int32_t* Z, const
 int zkt_accumulate_lm(const int32_t* digits, const int32_t* Qx, const int32_t* Qy, int32_t* bX,
                       int32_t* bY, int32_t* bZ, int chunk_len, int R, int n_buckets, int block,
                       const uint32_t* p, const uint32_t* one, uint32_t n0, void* stream) {
-  const FieldParams P = make_params(p, one, n0, 0);
+  const FieldParams8 P = make_params<NL>(p, one, n0, 0);
   accumulate_kernel<<<grid_of(R, block), block, 0, (cudaStream_t)stream>>>(
       digits, Qx, Qy, bX, bY, bZ, chunk_len, R, n_buckets, P);
   return (int)cudaGetLastError();

@@ -52,9 +52,9 @@ __global__ void __launch_bounds__(kThreads) imad_probe(uint32_t* __restrict__ ou
 }
 
 __global__ void __launch_bounds__(kThreads) mont_probe(uint32_t* __restrict__ out, int iters,
-                                                       FieldParams P) {
+                                                       FieldParams8 P) {
   const uint32_t tid = blockIdx.x * blockDim.x + threadIdx.x;
-  Fq a[4], b;
+  Fq8 a[4], b;
 #pragma unroll
   for (int i = 0; i < NL; ++i) {
     b.v[i] = P.one.v[i] ^ (tid * 0x9E3779B9u + i);
@@ -87,7 +87,7 @@ int zkt_probe_imad(uint32_t* out, int blocks, int iters, uint32_t k, void* strea
 // out: blocks * 256 words. 4 Montgomery products per thread and iteration.
 int zkt_probe_mont(uint32_t* out, int blocks, int iters, const uint32_t* p, const uint32_t* one,
                    uint32_t n0, void* stream) {
-  const FieldParams P = make_params(p, one, n0, 0);
+  const FieldParams8 P = make_params<NL>(p, one, n0, 0);
   mont_probe<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(out, iters, P);
   return (int)cudaGetLastError();
 }

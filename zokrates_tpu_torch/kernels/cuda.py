@@ -35,7 +35,13 @@ SOURCES = {
 }
 HEADERS = [os.path.join(CSRC, "field.cuh")]
 ARCH = "arch=compute_90a,code=sm_90a"
-NL32 = 8  # 32-bit limbs per element the kernels are instantiated for
+# 32-bit limbs per element the kernels are instantiated for: 8 (BN254's
+# fields, the BLS12 scalar fields) and 12 (the BLS12 base fields; the MSM
+# kernels of msm_sorted.cu only)
+NL32 = (8, 12)
+# the widths of the other kernels (elementwise, NTT, matvec walk, point
+# kernels, probe)
+NL32_FIELD = (8,)
 
 _LIB: Optional[SimpleNamespace] = None
 
@@ -81,9 +87,9 @@ def load() -> SimpleNamespace:
     L = ctypes.POINTER(ctypes.c_uint32)
     sigs = {
         "zkt_msm": {
-            "zkt_msm_walk": [P, P, P, P, I, I, I, I, I, I, L, L, U, I, P],
-            "zkt_msm_suffix": [P, P, P, I, I, I, L, L, U, I, P],
-            "zkt_msm_suffix_fold": [P, P, P, I, I, I, I, L, L, U, I, P],
+            "zkt_msm_walk": [P, P, P, P, I, I, I, I, I, I, I, L, L, U, I, P],
+            "zkt_msm_suffix": [P, P, P, I, I, I, I, L, L, U, I, P],
+            "zkt_msm_suffix_fold": [P, P, P, I, I, I, I, I, L, L, U, I, P],
         },
         "zkt_field": {
             "zkt_emul": [P, P, P, LL, LL, LL, LL, LL, L, L, U, P],
@@ -122,25 +128,31 @@ def load() -> SimpleNamespace:
 _PARAMS = {}
 
 
-def field_params(p: int, beta) -> Tuple[object, object, int, int]:
-    """(p limbs, Montgomery one, n0, |beta|) as the kernels take them:
-    NL32 little-endian 32-bit limbs; R = 2^256, the R of the reference's
-    16 x 16-bit limb layout. Raises for fields of another width."""
+def field_params(p: int, beta, widths=NL32) -> Tuple[int, object, object, int, int]:
+    """(n, p limbs, Montgomery one, n0, |beta|) as the kernels take them: n
+    = nl/2 little-endian 32-bit limbs for a field of nl 16-bit limbs; R =
+    2^(16 nl), the R of the reference's limb layout. Raises for a field
+    whose width is not among `widths` (32-bit limb counts: the widths the
+    calling kernel is instantiated for)."""
+    n = field_spec(p).nl // 2
+    if n not in widths:
+        raise ValueError(
+            f"the CUDA kernel takes fields of {' or '.join(str(2 * w) for w in widths)} "
+            f"16-bit limbs, got nl={2 * n}"
+        )
     key = (p, beta)
     if key not in _PARAMS:
-        spec = field_spec(p)
-        if spec.nl != 2 * NL32:
-            raise ValueError(
-                f"the CUDA kernels take {2 * NL32} x 16-bit-limb fields, got nl={spec.nl}"
-            )
         n0 = (-pow(p, -1, 1 << 32)) % (1 << 32)
-        _PARAMS[key] = (limbs32(p), limbs32(spec.r), n0, 0 if beta is None else -beta)
+        _PARAMS[key] = (n, limbs32(p, n), limbs32(field_spec(p).r, n), n0, 0 if beta is None else -beta)
     return _PARAMS[key]
 
 
-def limbs32(x: int):
-    """x < 2^256 as NL32 little-endian 32-bit limbs (a ctypes array)."""
-    return (ctypes.c_uint32 * NL32)(*[(x >> (32 * i)) & 0xFFFFFFFF for i in range(NL32)])
+def limbs32(x: int, n: int):
+    """0 <= x < 2^(32n) as n little-endian 32-bit limbs (a ctypes array), n
+    one of NL32."""
+    if n not in NL32 or not 0 <= x < 1 << (32 * n):
+        raise ValueError(f"limbs32: {x.bit_length()}-bit value in {n} limbs (widths {NL32})")
+    return (ctypes.c_uint32 * n)(*[(x >> (32 * i)) & 0xFFFFFFFF for i in range(n)])
 
 
 def check(rc: int, what: str) -> None:

@@ -46,8 +46,10 @@ from ..fields.limbs import LIMB_BITS
 from .pallas_field import _general_add, _mixed_add_inline, field_for
 
 # launches of each CUDA kernel, counted by its wrapper (plain-version runs
-# on CPU tensors are not launches)
+# on CPU tensors are not launches), and the same by (kernel, 32-bit limbs
+# of the instantiation launched)
 LAUNCHES: Counter = Counter()
+WIDTH_LAUNCHES: Counter = Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -243,13 +245,15 @@ def walk(q, flags, p: int, mode: str, safe: bool, beta=None):
 
     q: (K, 2*en, L) affine [x|y] rows (mode "mixed") or (K, 3*en, L)
     Jacobian [X|Y|Z] rows (mode "general"); flags: (K, L), bit0 flush
-    after the position, bit1 skip it. en = 16 rows of 16-bit Montgomery
-    limbs per Fq coordinate, 32 per Fq2 coordinate ([c0|c1], beta = the
-    small negative non-residue). Returns the accumulator snapshot after
-    every position (K, 3*en, L) and the per-lane collision flag (L,)
-    (set only by the doubling-free mixed add, safe=False). All int32.
-    CPU tensors take walk_plain; CUDA tensors launch the kernel, one thread
-    per lane and sub-chunk of walk_split(K, L) positions (walk_owners)."""
+    after the position, bit1 skip it. en = nl rows of 16-bit Montgomery
+    limbs per Fq coordinate (16 for BN254, 24 for the BLS12 curves), 2*nl
+    per Fq2 coordinate ([c0|c1], beta = the small negative non-residue).
+    Returns the accumulator snapshot after every position (K, 3*en, L) and
+    the per-lane collision flag (L,) (set only by the doubling-free mixed
+    add, safe=False). All int32.
+    CPU tensors take walk_plain; CUDA tensors launch the kernel at the
+    field's width (cuda.NL32; another width raises), one thread per lane
+    and sub-chunk of walk_split(K, L) positions (walk_owners)."""
     if mode not in ("mixed", "general"):
         raise ValueError(f"unknown walk mode {mode!r}")
     if mode == "general" and not safe:
@@ -266,7 +270,7 @@ def walk(q, flags, p: int, mode: str, safe: bool, beta=None):
     from . import cuda
 
     lib = cuda.load()
-    pl, one, n0, babs = cuda.field_params(p, beta)
+    nl32, pl, one, n0, babs = cuda.field_params(p, beta)
     out = torch.empty((K, 3 * en, L), dtype=torch.int32, device=q.device)
     coll = torch.zeros((L,), dtype=torch.int32, device=q.device)  # threads only set it
     if L == 0 or K == 0:
@@ -274,11 +278,12 @@ def walk(q, flags, p: int, mode: str, safe: bool, beta=None):
     with torch.cuda.device(q.device):
         rc = lib.zkt_msm_walk(
             q.data_ptr(), flags.data_ptr(), out.data_ptr(), coll.data_ptr(), K, L, walk_split(K, L),
-            int(beta is not None), int(mode == "mixed"), int(safe), pl, one, n0, babs,
+            nl32, int(beta is not None), int(mode == "mixed"), int(safe), pl, one, n0, babs,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     cuda.check(rc, "walk")
     LAUNCHES["walk_" + mode] += 1
+    WIDTH_LAUNCHES["walk_" + mode, nl32] += 1
     return out, coll
 
 
@@ -302,17 +307,18 @@ def suffix(a, b, p: int, beta=None):
     from . import cuda
 
     lib = cuda.load()
-    pl, one, n0, babs = cuda.field_params(p, beta)
+    nl32, pl, one, n0, babs = cuda.field_params(p, beta)
     out = torch.empty((6 * en, M), dtype=torch.int32, device=a.device)
     if M == 0:
         return out
     with torch.cuda.device(a.device):
         rc = lib.zkt_msm_suffix(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), Lb, M, int(beta is not None),
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), Lb, M, nl32, int(beta is not None),
             pl, one, n0, babs, torch.cuda.current_stream(a.device).cuda_stream,
         )
     cuda.check(rc, "suffix")
     LAUNCHES["suffix"] += 1
+    WIDTH_LAUNCHES["suffix", nl32] += 1
     return out
 
 
@@ -373,18 +379,19 @@ def suffix_fold(out6, p: int, W: int, lw: int, L: int, beta=None):
     from . import cuda
 
     lib = cuda.load()
-    pl, one, n0, babs = cuda.field_params(p, beta)
+    nl32, pl, one, n0, babs = cuda.field_params(p, beta)
     out = torch.empty((3, W, en), dtype=torch.int64, device=out6.device)
     if W == 0:
         return out[0], out[1], out[2]
     sums = torch.empty((3 * en, W * lw), dtype=torch.int32, device=out6.device)
     with torch.cuda.device(out6.device):
         rc = lib.zkt_msm_suffix_fold(
-            out6.data_ptr(), sums.data_ptr(), out.data_ptr(), W, lw, L, int(beta is not None), pl, one, n0, babs,
-            torch.cuda.current_stream(out6.device).cuda_stream,
+            out6.data_ptr(), sums.data_ptr(), out.data_ptr(), W, lw, L, nl32, int(beta is not None), pl, one,
+            n0, babs, torch.cuda.current_stream(out6.device).cuda_stream,
         )
     cuda.check(rc, "suffix_fold")
     LAUNCHES["suffix_fold"] += 1
+    WIDTH_LAUNCHES["suffix_fold", nl32] += 1
     return out[0], out[1], out[2]
 
 
@@ -569,7 +576,8 @@ def _msm_from_plan(p: int, W: int, cfg: MSMConfig, P128: torch.Tensor, plan, saf
                    beta=None, mark=None):
     """Point part of the sorted MSM over a precomputed plan.
 
-    P128: (Q, N, 128) int32 packed rows of Q point sets sharing the plan.
+    P128: (Q, N, packed_width(en)) int32 packed rows of Q point sets
+    sharing the plan.
     Returns ((Q, W, en) int64 Jacobian window sums X, Y, Z in Montgomery
     limbs, collision flag as a 0-dim tensor). mark(label), if given, is
     called after the walks, the suffix kernel and the suffix epilogue."""
@@ -801,8 +809,9 @@ def msm_sorted_host(p, r_mod, P128, scalars, cfg: Optional[MSMConfig] = None,
                     max_bits: Optional[int] = None, beta=None):
     """Full sorted MSM: device plan + walks + host window combine.
 
-    P128: (N, 128) int32 packed points [x|y|-y|pad] in Montgomery limbs
-    (G2 rows pack each Fq2 coordinate as [c0 limbs | c1 limbs]).
+    P128: (N, packed_width(en)) int32 packed points [x|y|-y|pad] in
+    Montgomery limbs (G2 rows pack each Fq2 coordinate as [c0 limbs | c1
+    limbs]).
     scalars: (N, nls) canonical limbs. Returns host Jacobian ints (X, Y, Z),
     canonical — Fq2 coordinates as (c0, c1) pairs when beta is given.
 
@@ -820,26 +829,34 @@ def msm_sorted_host(p, r_mod, P128, scalars, cfg: Optional[MSMConfig] = None,
     return combine_windows(p, r_mod, tuple(a[0].cpu().numpy() for a in out), W, cfg.c, beta)
 
 
+def packed_width(en: int) -> int:
+    """Words of a packed point row for coordinates of en limbs: 128 where
+    the three coordinates fit (BN254's rows, and the TPU's gather layout),
+    else 3*en (BLS12 G2: 144; BW6-761 G1: 144)."""
+    return max(128, 3 * en)
+
+
 def pack_points(p, X, Y) -> torch.Tensor:
-    """Montgomery limb tensors (N, nl) -> packed (N, 128) int32 rows
-    [x|y|-y|0-pad]."""
+    """Montgomery limb tensors (N, nl) -> packed (N, packed_width(nl))
+    int32 rows [x|y|-y|0-pad]."""
     from ..fields.jfield import field_ops
 
     f = field_ops(p)
     N = X.shape[0]
-    pad = torch.zeros((N, 128 - 3 * f.nl), dtype=torch.int64, device=X.device)
+    pad = torch.zeros((N, packed_width(f.nl) - 3 * f.nl), dtype=torch.int64, device=X.device)
     return torch.cat([X, Y, f.neg(Y), pad], dim=1).to(torch.int32)
 
 
 def pack_points_g2(p, X, Y) -> torch.Tensor:
-    """Montgomery limb tensors (N, 2, nl) Fq2 coords -> packed (N, 128)
-    int32 rows [x.c0|x.c1|y.c0|y.c1|-y.c0|-y.c1|0-pad]."""
+    """Montgomery limb tensors (N, 2, nl) Fq2 coords -> packed (N,
+    packed_width(2*nl)) int32 rows [x.c0|x.c1|y.c0|y.c1|-y.c0|-y.c1|0-pad]:
+    128 words for BN254, 144 for the BLS12 curves."""
     from ..fields.jfield import field_ops
 
     f = field_ops(p)
     N = X.shape[0]
     nl = f.nl
-    pad = torch.zeros((N, 128 - 6 * nl), dtype=torch.int64, device=X.device)
+    pad = torch.zeros((N, packed_width(2 * nl) - 6 * nl), dtype=torch.int64, device=X.device)
     return torch.cat(
         [X.reshape(N, 2 * nl), Y.reshape(N, 2 * nl), f.neg(Y).reshape(N, 2 * nl), pad], dim=1
     ).to(torch.int32)

@@ -90,7 +90,7 @@ def fft_core(dom, x: torch.Tensor, inverse: bool) -> torch.Tensor:
     from . import cuda
 
     lib = cuda.load()
-    pl, one, n0, _ = cuda.field_params(dom.p, None)
+    _, pl, one, n0, _ = cuda.field_params(dom.p, None, cuda.NL32_FIELD)
     batch = x.numel() // (dom.n * nl)
     out = torch.empty_like(x)
     if batch == 0:

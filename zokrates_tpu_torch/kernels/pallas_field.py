@@ -213,7 +213,7 @@ def emul(p: int, a, b):
     _check_aligned("a", a, a_bs)
     _check_aligned("b", b, b_bs)
     lib = cuda.load()
-    pl, one, n0, _ = cuda.field_params(p, None)
+    _, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32_FIELD)
     out = torch.empty((B, L, nl), dtype=torch.int64, device=a.device)
     if out.numel() == 0:
         return out
@@ -245,13 +245,13 @@ def ereduce_wide(p: int, t):
 
     _check_aligned("t", t, 0)
     lib = cuda.load()
-    pl, one, n0, _ = cuda.field_params(p, None)
+    _, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32_FIELD)
     out = torch.empty_like(t)
     if out.numel() == 0:
         return out
     with torch.cuda.device(t.device):
         rc = lib.zkt_ereduce_wide(t.data_ptr(), out.data_ptr(), t.numel() // spec.nl,
-                                  cuda.limbs32(spec.r2), pl, one, n0,
+                                  cuda.limbs32(spec.r2, spec.nl // 2), pl, one, n0,
                                   torch.cuda.current_stream(t.device).cuda_stream)
     cuda.check(rc, "ereduce_wide")
     LAUNCHES["ereduce_wide"] += 1
@@ -325,7 +325,7 @@ def mulacc_walk(p: int, z_walk, coeff_walk, flags_walk):
     from . import cuda
 
     lib = cuda.load()
-    pl, one, n0, _ = cuda.field_params(p, None)
+    _, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32_FIELD)
     out = torch.empty_like(z_walk)
     if out.numel() == 0:
         return out
@@ -400,7 +400,7 @@ def mixed_add_lm(p: int, X, Y, Z, Qx, Qy, block: int = 256):
     from . import cuda
 
     lib = cuda.load()
-    pl, one, n0, _ = cuda.field_params(p, None)
+    _, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32_FIELD)
     out = torch.empty((3, nl, N), dtype=torch.int32, device=X.device)
     if N == 0:
         return out[0], out[1], out[2]
@@ -464,7 +464,7 @@ def accumulate_lm(p: int, digits, Qx, Qy, n_buckets: int = 16, block: int = 256)
     from . import cuda
 
     lib = cuda.load()
-    pl, one, n0, _ = cuda.field_params(p, None)
+    _, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32_FIELD)
     out = torch.empty((3, n_buckets, nl, R), dtype=torch.int32, device=digits.device)
     if R == 0:
         return out[0], out[1], out[2]

@@ -87,8 +87,11 @@ class ProvingKey:
     (i+1)*G and the mask is False; the prover runs the raw witness vector
     and subtracts the correction sum_masked z_i*(i+1) * G (see corr_w).
     The b2 query packs G2 rows [x.c0|x.c1|y.c0|y.c1|-y.c0|-y.c1] with the
-    same mask as b1. The arrays are numpy, equal to the JAX package's;
-    device copies are made per device on first prove.
+    same mask as b1; where those rows exceed 128 words (6*nl > 128: the
+    BLS12 curves, 144 words) the key keeps the coordinates instead, as the
+    JAX package does (b2_p128 None, b2_xy = (x, y), each (m, 2, nl)), and
+    b2_rows() packs the wide rows. The arrays are numpy, equal to the JAX
+    package's; device copies are made per device on first prove.
     """
 
     def __init__(
@@ -111,6 +114,7 @@ class ProvingKey:
         l_p128: np.ndarray,
         l_mask: np.ndarray,
         corr_w: np.ndarray,
+        b2_xy: Optional[Tuple[np.ndarray, np.ndarray]] = None,
         h16_p128: Optional[np.ndarray] = None,
     ):
         self.curve = curve
@@ -135,7 +139,38 @@ class ProvingKey:
         # w*N_hw + j = 2^(16w) * h_j (see _h16_p128); None on the CPU and
         # for large domains
         self.h16_p128 = h16_p128
+        self._b2_xy = b2_xy
         self._dev: Dict = {}
+
+    @property
+    def b2_x(self) -> np.ndarray:
+        """The b2 query's x coordinates, (m, 2, nl) Montgomery limbs."""
+        if self.b2_p128 is None:
+            return self._b2_xy[0]
+        nl = n_limbs(P.BASE_FIELDS[self.curve].p)
+        return self.b2_p128[:, : 2 * nl].reshape(-1, 2, nl)
+
+    @property
+    def b2_y(self) -> np.ndarray:
+        """The b2 query's y coordinates, (m, 2, nl) Montgomery limbs."""
+        if self.b2_p128 is None:
+            return self._b2_xy[1]
+        nl = n_limbs(P.BASE_FIELDS[self.curve].p)
+        return self.b2_p128[:, 2 * nl : 4 * nl].reshape(-1, 2, nl)
+
+    def b2_rows(self) -> np.ndarray:
+        """The b2 query as packed rows (m, packed_width(2*nl)) uint32:
+        b2_p128, or the wide rows packed from b2_xy (once; not pickled)."""
+        if self.b2_p128 is not None:
+            return self.b2_p128
+        rows = self._dev.get("b2_rows")
+        if rows is None:
+            from ..kernels.msm_sorted import pack_points_g2
+
+            x, y = (torch.as_tensor(a.astype(np.int64)) for a in self._b2_xy)
+            q = P.BASE_FIELDS[self.curve].p
+            rows = self._dev["b2_rows"] = pack_points_g2(q, x, y).numpy().astype(np.uint32)
+        return rows
 
     def __getstate__(self):
         d = dict(self.__dict__)
@@ -145,6 +180,7 @@ class ProvingKey:
     def __setstate__(self, d):
         self.__dict__.update(d)
         self.__dict__.setdefault("h16_p128", None)
+        self.__dict__.setdefault("_b2_xy", None)
         self._dev = {}
 
     def dev(self, device, N: int, m: int) -> Dict[str, torch.Tensor]:
@@ -158,7 +194,7 @@ class ProvingKey:
             d = {
                 "g1": t(np.stack([_pad_rows(self.a_p128, N), _pad_rows(self.b1_p128, N),
                                   _pad_rows(self.l_p128, N)])),
-                "b2": t(_pad_rows(self.b2_p128, N)[None]),
+                "b2": t(_pad_rows(self.b2_rows(), N)[None]),
                 "h": t(_pad_rows(self.h_p128, N)[None]),
                 "corr": torch.as_tensor(
                     np.pad(self.corr_w, ((0, 0), (0, N - m), (0, 0))).astype(np.int64), device=device
@@ -355,7 +391,13 @@ def setup(r1cs: R1CS, rng=None, device="cuda") -> Tuple[ProvingKey, "Verificatio
     if torch.device(device).type == "cuda" and n - 1 <= (1 << 17):
         h16_p128 = _h16_p128(curve, h_p128, _hw_fused_tier(m, n), device)
     b2x, b2y, _ = _fb_g2(curve, dummied(b_t), device)
-    b2_p128 = pack_points_g2(P.BASE_FIELDS[curve].p, b2x, b2y).cpu().numpy().astype(np.uint32)
+    q = P.BASE_FIELDS[curve].p
+    if 6 * n_limbs(q) <= 128:
+        b2_p128 = pack_points_g2(q, b2x, b2y).cpu().numpy().astype(np.uint32)
+        b2_xy = None
+    else:  # a packed G2 row over 128 words (the BLS12 curves): keep x, y
+        b2_p128 = None
+        b2_xy = (b2x.cpu().numpy().astype(np.uint32), b2y.cpu().numpy().astype(np.uint32))
     corr_w = np.stack([weights(a_t), weights(b_t), weights(l_full)])
 
     gamma_abc = _fb_g1_points(curve, abc_s, device)
@@ -380,6 +422,7 @@ def setup(r1cs: R1CS, rng=None, device="cuda") -> Tuple[ProvingKey, "Verificatio
         l_p128=l_p128,
         l_mask=np.asarray([s != 0 for s in l_full], dtype=bool),
         corr_w=corr_w,
+        b2_xy=b2_xy,
         h16_p128=h16_p128,
     )
     vk = VerificationKey(
@@ -502,8 +545,7 @@ def compute_h(r1cs: R1CS, z: Sequence[int], n: int, device="cuda") -> List[int]:
 # Nova and MPC call the same ones)
 # ---------------------------------------------------------------------------
 
-_XLA_MSM = ("the port has no XLA-Pippenger MSM yet: wide-field G2 (a packed row over 128 "
-            "words) and G2 over the base field (BW6-761) are not ported")
+_G2_OVER_FQ = "the port's G2 MSM runs over Fq2: a G2 over the base field (BW6-761) is not ported"
 
 
 def _pad_pairs(pairs):
@@ -555,13 +597,14 @@ def _msm_packed_g1(curve: str, P128: torch.Tensor, S: torch.Tensor, mask=None) -
 def _msm_dev_g2(curve: str, Px: torch.Tensor, Py: torch.Tensor, S: torch.Tensor, mask=None) -> PointG2:
     """G2 MSM over Fq2 coordinates (N, 2, nl) Montgomery x canonical-limb
     scalars, through the sorted MSM's Fq2 walks (the rows packed by
-    pack_points_g2). Fields whose packed G2 row exceeds 128 words take
-    the reference's XLA Pippenger, which is not ported."""
+    pack_points_g2: 144 words for the BLS12 curves, where the reference
+    takes its XLA Pippenger, since its TPU gather layout holds 128). A G2
+    over the base field (BW6-761) raises NotImplementedError."""
     from ..kernels.msm_sorted import msm_sorted_host, pack_points_g2
 
     grp = g2_group(curve)
-    if 6 * n_limbs(grp.q) > 128:
-        raise NotImplementedError(_XLA_MSM)
+    if not hasattr(grp, "tower"):
+        raise NotImplementedError(_G2_OVER_FQ)
     cfg, P128, S = _sorted_inputs(pack_points_g2(grp.q, Px, Py), S, mask)
     beta = grp.tower.beta - grp.q  # small negative representative
     return _jac_to_g2(curve, msm_sorted_host(grp.q, grp.r, P128, S, cfg, beta=beta))
@@ -587,14 +630,13 @@ def _msm_g1(curve: str, points: List[Optional[Tuple[int, int]]], scalars: List[i
 def _msm_g2(curve: str, points: List[Optional[PointG2]], scalars: List[int],
             device="cuda") -> PointG2:
     """G2 MSM over host points, as _msm_g1, through _msm_dev_g2. A G2 over
-    the base field (BW6-style) takes the reference's XLA Pippenger, which
-    is not ported."""
+    the base field (BW6-761) raises NotImplementedError."""
     grp = g2_group(curve)
     pairs = [(pt, s % grp.r) for pt, s in zip(points, scalars) if pt is not None and s % grp.r != 0]
     if not pairs:
         return grp.zero()
     if not hasattr(pairs[0][0].x, "c0"):
-        raise NotImplementedError(_XLA_MSM)
+        raise NotImplementedError(_G2_OVER_FQ)
     pairs = _pad_pairs(pairs)
 
     def coord(get):
@@ -711,6 +753,7 @@ def _host_sparse_windows(nf, nf2, pk, z_np, w0: int, w1: int, c: int):
     g1_wins = [[], [], []]
     g2_wins = []
     queries = (pk.a_p128, pk.b1_p128, pk.l_p128)
+    b2_rows = pk.b2_rows()
     m = z_np.shape[0]
     for w in range(w0, w1):
         nz = np.nonzero(digits[w][:m])[0].astype(np.int32)
@@ -718,7 +761,7 @@ def _host_sparse_windows(nf, nf2, pk, z_np, w0: int, w1: int, c: int):
         sg = signs[w][nz]
         for qi, q in enumerate(queries):
             g1_wins[qi].append(nf.sparse_window_g1(q, nz, dg, sg))
-        g2_wins.append(nf2.sparse_window_g2(pk.b2_p128, nz, dg, sg))
+        g2_wins.append(nf2.sparse_window_g2(b2_rows, nz, dg, sg))
     return g1_wins, g2_wins
 
 
@@ -1186,8 +1229,6 @@ def prove(r1cs: R1CS, pk: ProvingKey, witness: Witness, rng=None, device="cuda",
     If `timings` is a dict, per-stage wall seconds are added to it (the
     device is synchronized at each stage boundary)."""
     curve = r1cs.curve
-    if pk.b2_p128 is None:
-        raise ValueError("this prover needs the packed G2 query (b2_p128)")
     p = P.SCALAR_FIELDS[curve].p
     rand = rng or (lambda: secrets.randbelow(p))
     mark = _Stages(timings, device)
@@ -1210,8 +1251,6 @@ def prove_batch(r1cs: R1CS, pk: ProvingKey, witnesses: Sequence[Witness], rng=No
     witness b given the same r, s. `timings` as in prove(), summed over
     the batch."""
     curve = r1cs.curve
-    if pk.b2_p128 is None:
-        raise ValueError("this prover needs the packed G2 query (b2_p128)")
     if not witnesses:
         return []
     p = P.SCALAR_FIELDS[curve].p
