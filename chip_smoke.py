@@ -17,8 +17,9 @@ Phases, each timed:
      the suffix walk and its epilogue (suffix_fold), each over Fq and Fq2,
      over G1 also at the shared-bucket h MSM's shapes and the a/b1/l
      MSM's (three queries on one plan); each walk shape's sub-chunk
-     length S and thread count are logged; emul, ereduce_wide,
-     the NTT and the matvec walk mulacc_walk (B = 1 and 16, the sha256
+     length S and thread count are logged, and each suffix shape's
+     sub-chunks a lane k (msm_sorted.suffix_split) and thread count;
+     emul, ereduce_wide, the NTT and the matvec walk mulacc_walk (B = 1 and 16, the sha256
      walk layout and its flush pattern) over the scalar field — outputs
      must be bit-equal; then a full sorted MSM on the card against the
      Python-int oracle (G1 and G2)
@@ -33,10 +34,11 @@ Phases, each timed:
      inside the h stage, the corrections or the MSMs; then the h MSM of
      one proof's h scalars in both forms (shared-bucket and dense per
      window: equal as group elements, each timed), and that MSM's h16
-     walk, first merge walk and epilogue on its own plan and points
-     against their plain versions (bit-equal, timed; each walk also at
-     every S through the kernel's C entry point, bit-equal to the
-     wrapper's output)
+     walk, first merge walk, suffix and epilogue on its own plan and
+     points against their plain versions (bit-equal, timed; each walk
+     also at every S through the kernel's C entry point, bit-equal to the
+     wrapper's output; the suffix at every k, each bit-equal to the plain
+     version at that k)
   5. batched path, as bench.py measures: 16 distinct sha256 witnesses made
      by the port's interpreter (preimage [16b, ..., 16b + 15]), one
      warm-up prove_batch and 2 timed ones; every proof of the last batch
@@ -55,9 +57,11 @@ Phases, each timed:
      within 2^8 of r; full sorted MSMs against the oracle over G1 and G2 of
      BLS12-381 and BLS12-377; setup (with h16_p128; the b2 query keeps
      its coordinates, packed on the card into rows of 144 words), 3 proofs
-     verified, a tampered proof and a wrong public input rejected; then
-     prove_batch as in phase 5. The launch counts are also tallied by limb
-     width: every MSM kernel launches at 12 limbs there, at no other width
+     verified, a tampered proof and a wrong public input rejected; the h
+     MSM shared-bucket against dense, and its h16 suffix on a proof's own
+     table at every k, as in phase 4; then prove_batch as in phase 5. The
+     launch counts are also tallied by limb width: every MSM kernel
+     launches at 12 limbs there, at no other width
   7. BLS12-377: Groth16 setup, prove and verify on the card on a toy
      circuit (Fq2 with u^2 = -5), forgeries rejected, the MSM kernels at
      12 limbs
@@ -156,10 +160,10 @@ CHECKED_ONLY = ("mixed_add_lm", "accumulate_lm")
 # the kernels every GM17 prove launches (no matvec walk, no lazy reduction)
 GM17_KERNELS = ("walk_mixed", "walk_general", "suffix", "suffix_fold", "ntt", "emul")
 # the variant whose time stands for each kernel in the kernels line: the
-# one the main path launches on the most data (G1, the walks, suffix and
-# epilogue of the shared-bucket h MSM, the walks and epilogue on a proof's
-# own plan, the matvec's product and reduction
-# (COO shape), the batch of 3 forward transforms, the batched matvec walk)
+# one the main path launches on the most data (G1; the shared-bucket h
+# MSM's walks and epilogue on a proof's own plan, its suffix on a random
+# table at the same shape; the matvec's product and reduction (COO
+# shape), the batch of 3 forward transforms, the batched matvec walk)
 MAIN_VARIANT = {"walk_mixed": ("Fq", "mixed-safe h16 real"), "walk_general": ("Fq", "general h16 real"),
                 "suffix": ("Fq", "fold=False h16"), "suffix_fold": ("Fq", "h16 MSM real"),
                 "emul": ("Fr", "matvec"), "ereduce_wide": ("Fr", "matvec"),
@@ -260,6 +264,18 @@ def walk_launch(K: int, L: int):
     T = -(-K // S)
     log(f"    walk launch ({K}, {L}): S = {S}, {T} sub-chunk{'s' if T > 1 else ''} a lane, {T * L} threads")
     return {"S": S, "subchunks": T, "threads": T * L}
+
+
+def suffix_launch(Lb: int, M: int):
+    """The suffix kernel's launch at (Lb, M): sub-chunks a lane k
+    (msm_sorted.suffix_split) and threads (one per lane and sub-chunk);
+    logged beside each suffix shape."""
+    from zokrates_tpu_torch.kernels.msm_sorted import suffix_split
+
+    k = suffix_split(Lb, M)
+    log(f"    suffix launch ({Lb}, {M}): k = {k}, {Lb // k} bucket{'s' if Lb // k > 1 else ''} a thread, "
+        f"{k * M} threads")
+    return {"k": k, "threads": k * M}
 
 
 def walk_adds(flags: np.ndarray, qinf: np.ndarray) -> int:
@@ -410,8 +426,10 @@ def check_kernels(shapes, dev, tag: str = "", seed: int = SEED, curve: str = "bn
             ms_k = cuda_ms(lambda: ms.suffix(A, B, q, beta))
             mults = suffix_adds(ia == pool.inf_row, ib == pool.inf_row) * GENERAL_MULS * fm
             nbytes = 4 * (A.numel() + B.numel() + out.numel())
-            records["suffix"].append(_record("suffix", fname, "fold=False" + stag, (Lb, M), (out,), (ref,),
-                                             ms_k, ms_p, mults, nbytes, width, curve))
+            rec = _record("suffix", fname, "fold=False" + stag, (Lb, M), (out,), (ref,), ms_k, ms_p, mults, nbytes,
+                          width, curve)
+            rec.update(suffix_launch(Lb, M))
+            records["suffix"].append(rec)
 
         for label, (G, lw, L) in sh["fold"].items():
             label += tag if curve != "bn128" else ""
@@ -1080,17 +1098,18 @@ def check_launches(launches, runs: int, path: str):
 
 
 def compare_h_msm(r1cs, wit, pk, dev):
-    """The h MSM of one proof's h scalars in the shared-bucket form the
-    prove takes (c = 16, one window over the pk's h16 rows) and dense per
-    window (c = 8 over the h rows): equal after the host combine, as affine
-    points. Each is timed with the host clock around plan + MSM, ending in
-    a synchronize (the second of two runs), with its stage split."""
+    """The h MSM of one proof's h scalars on the r1cs's curve in the
+    shared-bucket form the prove takes (c = 16, one window over the pk's
+    h16 rows) and dense per window (c = 8 over the h rows): equal after
+    the host combine, as affine points. Each is timed with the host clock
+    around plan + MSM, ending in a synchronize (the second of two runs),
+    with its stage split."""
     import torch
     from zokrates_tpu_torch.fields import params as P
     from zokrates_tpu_torch.kernels import msm_sorted as ms
     from zokrates_tpu_torch.schemes import groth16 as g
 
-    p, q = P.SCALAR_FIELDS["bn128"].p, P.BASE_FIELDS["bn128"].p
+    p, q = P.SCALAR_FIELDS[r1cs.curve].p, P.BASE_FIELDS[r1cs.curve].p
     m, n = r1cs.num_variables, pk.domain_size
     N = g._hw_fused_tier(m, n)
     cfg = ms.default_config(N)
@@ -1099,7 +1118,7 @@ def compare_h_msm(r1cs, wit, pk, dev):
         raise AssertionError(f"the pk carries no shared-bucket h query at the prover's tier N = {N}")
     z = g._witness_limbs(r1cs, wit, p, 16)
     Z = torch.as_tensor(np.pad(z, ((0, N - m), (0, 0))).astype(np.int64), device=dev)[None]
-    h = g._h_stage("bn128", g._r1cs_device(r1cs, n, dev), Z)[0]
+    h = g._h_stage(r1cs.curve, g._r1cs_device(r1cs, n, dev), Z)[0]
     h_pad = torch.nn.functional.pad(h[: n - 1], (0, 0, 0, N - (n - 1)))
     pkd = pk.dev(dev, N, m)
     def h16(mark):
@@ -1188,8 +1207,9 @@ class ShapeTally(Capture):
 
     def report(self, runs: int, what: str):
         """Logs the launches per run by kernel and shape (with each walk
-        shape's S and thread count) and returns them as records."""
-        from zokrates_tpu_torch.kernels.msm_sorted import walk_split
+        shape's S, each suffix shape's k and their thread counts) and
+        returns them as records."""
+        from zokrates_tpu_torch.kernels.msm_sorted import suffix_split, walk_split
 
         log(f"  launches per {what} by kernel and shape (over {runs}):")
         out = []
@@ -1200,6 +1220,10 @@ class ShapeTally(Capture):
                 S = walk_split(*shape)
                 rec.update(S=S, threads=-(-shape[0] // S) * shape[1])
                 extra = f", S = {S}, {rec['threads']} threads"
+            elif name == "suffix":
+                k = suffix_split(*shape)
+                rec.update(k=k, threads=k * shape[1])
+                extra = f", k = {k}, {rec['threads']} threads"
             log(f"    {name:20s} {field:3s} {str(shape):16s} {n / runs:g}{extra}")
             out.append(rec)
         return out
@@ -1241,17 +1265,80 @@ def sweep_walk_split(args, want):
     return times
 
 
-def check_h16_real(calls):
-    """The shared-bucket h MSM's mixed walk, its first merge walk and its
-    epilogue on one proof's own inputs (the plan and sorted points of its
-    h scalars, as compare_h_msm captured them), each against its plain
-    version, bit for bit, and timed; each walk also at every S
-    (sweep_walk_split). The random-flag checks at the same shapes flush 25%
-    of positions; the real plan's bucket runs are about 16 long."""
+def sweep_suffix_split(args, want):
+    """The suffix kernel at every k (powers of two that divide Lb, up to a
+    block) through its C entry point, on the wrapper's inputs `args`: each
+    output bit-equal to suffix_plain at that k (`want`: outputs known
+    already, by k), each timed. Returns {k: ms}; the wrapper's k comes
+    from suffix_split."""
+    import torch
+    from zokrates_tpu_torch.kernels import cuda
+    from zokrates_tpu_torch.kernels import msm_sorted as ms
+
+    a, b, p, beta = args
+    Lb, _, M = a.shape
+    lib = cuda.load()
+    nl, pl, one, n0, babs = cuda.field_params(p, beta)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    out = torch.empty((2 * a.shape[1], M), dtype=torch.int32, device=a.device)
+    times = {}
+    for k in sorted((1 << i for i in range(ms.SUFFIX_BLOCK.bit_length()) if Lb % (1 << i) == 0), reverse=True):
+        ref = want[k] if k in want else ms.suffix_plain(a, b, p, beta, k)
+
+        def launch():
+            cuda.check(lib.zkt_msm_suffix(a.data_ptr(), b.data_ptr(), out.data_ptr(), Lb, M, k, nl,
+                                          int(beta is not None), pl, one, n0, babs, stream), "suffix")
+        out.fill_(-1)
+        launch()
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"the suffix kernel at k = {k} differs from suffix_plain at k = {k}")
+        times[k] = cuda_ms(launch)
+    log(f"    sweep ({Lb}, {M}), bit-equal to the plain version at every k: "
+        + "  ".join(f"k={k} {t:.4f} ms" for k, t in times.items()))
+    return times
+
+
+def check_suffix_real(args, tag: str = "", width: int = 8, curve: str = "bn128"):
+    """The shared-bucket h MSM's suffix on one proof's own dense bucket
+    table (`args` as compare_h_msm captured them) against its plain
+    version, bit for bit, timed, and at every k (sweep_suffix_split). The
+    random-table check at the same shape draws every slot from a pool of
+    points; the real table holds each bucket's one or two records, with
+    empty slots at infinity."""
     import torch
     from zokrates_tpu_torch.kernels import msm_sorted as ms
 
-    records = {"walk_mixed": [], "walk_general": [], "suffix_fold": []}
+    a, b, p, beta = args
+    Lb, _, M = a.shape
+    out = ms.suffix(*args)
+    torch.cuda.synchronize()
+    ref, ms_p = host_ms(lambda: ms.suffix_plain(*args))
+    ms_k = cuda_ms(lambda: ms.suffix(*args))
+    en = a.shape[1] // 3
+    ainf, binf = ((t[:, 2 * en:] == 0).all(1).cpu().numpy() for t in (a, b))
+    mults = suffix_adds(ainf, binf) * GENERAL_MULS * (1 if beta is None else FQ2_MULS)
+    nbytes = 4 * (a.numel() + b.numel() + out.numel())
+    rec = _record("suffix", "Fq" if beta is None else "Fq2", "fold=False h16 real" + tag, (Lb, M), (out,), (ref,),
+                  ms_k, ms_p, mults, nbytes, width, curve)
+    rec["empty_slots"] = int(ainf.sum() + binf.sum())
+    rec.update(suffix_launch(Lb, M))
+    rec["sweep"] = sweep_suffix_split(args, {ms.suffix_split(Lb, M): ref})
+    return rec
+
+
+def check_h16_real(calls):
+    """The shared-bucket h MSM's mixed walk, its first merge walk, its
+    suffix and its epilogue on one proof's own inputs (the plan and sorted
+    points of its h scalars, as compare_h_msm captured them), each against
+    its plain version, bit for bit, and timed; each walk also at every S
+    (sweep_walk_split), the suffix at every k (check_suffix_real). The
+    random-flag checks at the same shapes flush 25% of positions; the real
+    plan's bucket runs are about 16 long."""
+    import torch
+    from zokrates_tpu_torch.kernels import msm_sorted as ms
+
+    records = {"walk_mixed": [], "walk_general": [], "suffix": [], "suffix_fold": []}
     walks = calls["walk"]
     for args in (walks[0], walks[1]):
         qrows, flags, p, mode, safe, beta = args
@@ -1273,6 +1360,7 @@ def check_h16_real(calls):
         rec.update(walk_launch(K, L))
         rec["sweep"] = sweep_walk_split(args, out)
         records["walk_" + mode].append(rec)
+    records["suffix"].append(check_suffix_real(calls["suffix"][0]))
     out6, p, G, lw, L, beta = calls["suffix_fold"][0]
     got = ms.suffix_fold(out6, p, G, lw, L, beta)
     torch.cuda.synchronize()
@@ -1355,7 +1443,8 @@ def profile_batch(r1cs, pk, wits, dev, rs):
     """One more prove_batch (after the launch counts were read) under
     torch.profiler: the card's busy time, the sum of the device time of
     its kernels and copies, against the batch's wall time under the
-    profiler, and the kernels that take most of it."""
+    profiler, the kernels that take most of it, and every suffix kernel
+    (suffix_kernel, suffix_split_kernel) below those."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1375,8 +1464,9 @@ def profile_batch(r1cs, pk, wits, dev, rs):
             "(the profiler recorded no device events)")
         return
     log(f"  profiled prove_batch: {wall:.1f} ms wall, device busy {busy:.1f} ms "
-        f"(idle share {1 - busy / wall:.3f}); top device time:")
-    for e in sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:8]:
+        f"(idle share {1 - busy / wall:.3f}); top device time, then the other suffix kernels:")
+    top = sorted(dev_ev, key=lambda e: -e.self_device_time_total)
+    for e in top[:8] + [e for e in top[8:] if "suffix" in e.key]:
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
@@ -1420,6 +1510,10 @@ def run_bls12_381_path(dev, smi, records):
     log("== BLS12-381 main path: setup, prove, verify (sha256, 2^15)")
     launches, pk, vk = run_main_path(r1cs, wits[0], dev, forgeries=True)
     log(f"  12-limb MSM launches over setup and {NPROOFS} proofs: {check_width(12, 'the BLS12-381 main path')}")
+    log("== BLS12-381 h MSM: shared-bucket vs dense; its h16 suffix on that proof's own table (bit-equal)")
+    _, h16_calls = compare_h_msm(r1cs, wits[0], pk, dev)
+    records["suffix"].append(check_suffix_real(h16_calls["suffix"][0], tag, 12, curve))
+    del h16_calls
     log(f"== BLS12-381 batched path: prove_batch, B={BATCH} distinct sha256 witnesses")
     launches_batch = run_batch_path(r1cs, pk, vk, wits, dev, smi)
     log(f"  12-limb MSM launches over the batches: {check_width(12, 'the BLS12-381 batched path')}")
@@ -1587,7 +1681,7 @@ def main():
 
     log("== h MSM: shared-bucket (the prove's) vs dense, same h scalars")
     _, h16_calls = compare_h_msm(r1cs, wit, pk, dev)
-    log("== the h16 walks and epilogue on that proof's own plan (kernel vs plain version, bit-equal)")
+    log("== the h16 walks, suffix and epilogue on that proof's own plan (kernel vs plain version, bit-equal)")
     for name, recs in check_h16_real(h16_calls).items():
         records[name] += recs
     del h16_calls

@@ -17,7 +17,12 @@ machine need not have; this file imports nothing of the JAX package.)
 The sorted MSM's kernels also at 12 limbs, over Fq and Fq2 of BLS12-381
 (u^2 = -1) and BLS12-377 (u^2 = -5): the walk at every S through its C
 entry point, the suffix walk and the epilogue up to lw = 1024; and the C
-entry points' refusal of a width they have no instantiation of.
+entry points' refusal of a width they have no instantiation of. The
+suffix walk at 8 and 12 limbs, over Fq and Fq2, at Lb = 1, 3 and 32 on
+203 lanes, through the wrapper and through its C entry point at every
+split k of a lane into sub-chunks (each against suffix_plain at that k),
+with lanes planted at infinity, with doublings and with cancellations;
+and the entry point's refusal of a k it cannot run.
 
 Inputs: real curve points from seeded generators (with points at
 infinity), lane counts that are not multiples of the kernels' block size,
@@ -313,6 +318,76 @@ def test_suffix_kernel_12_limbs_equals_plain(dev, curve, ext):
     assert torch.equal(out, ms.suffix_plain(a, b, q, beta))
 
 
+@pytest.mark.parametrize("Lb", [1, 3, 32])
+@pytest.mark.parametrize("ext", [False, True], ids=["Fq", "Fq2"])
+@pytest.mark.parametrize("curve", ["bn128", "bls12_381"])
+def test_suffix_kernel_at_every_split(dev, curve, ext, Lb):
+    """The suffix kernel at 8 (BN254) and 12 limbs (BLS12-381) on M = 203
+    lanes, a multiple of no block (128 lanes at k = 1, 128/k at k > 1):
+    through the wrapper (k = suffix_split(Lb, M), one launch, counted) and
+    through the C entry point at every power of two k that divides Lb, each
+    bit-equal to suffix_plain at that k. Lanes 0-3 planted: the same point
+    in both slots everywhere (every add of the walk and, at c = 1, of the
+    scan doubles), all at infinity, A = -B (each T cancels), slot a at
+    infinity."""
+    from zokrates_tpu_torch.kernels import cuda
+
+    if curve == "bn128":
+        (_, jac), q, beta, n = _rows(ext, seed=80 + ext), Q, (-1 if ext else None), 8
+    else:
+        (_, jac, q, beta), n = _rows12(curve, ext, seed=82 + ext), 6
+    inf = jac.shape[0] - 1
+    rng = np.random.default_rng(81 + Lb)
+    M = 203
+    ia = rng.integers(0, jac.shape[0], (Lb, M))
+    ib = rng.integers(0, jac.shape[0], (Lb, M))
+    ia[:, 0] = ib[:, 0] = 2
+    ia[:, 1] = ib[:, 1] = inf
+    ia[:, 2] %= n
+    ib[:, 2] = ia[:, 2] + n
+    ia[:, 3] = inf
+    a = jac[torch.as_tensor(ia)].permute(0, 2, 1).contiguous().to(dev)
+    b = jac[torch.as_tensor(ib)].permute(0, 2, 1).contiguous().to(dev)
+    want = {k: ms.suffix_plain(a, b, q, beta, k) for k in (1, 2, 4, 8, 16, 32) if Lb % k == 0}
+    before = ms.LAUNCHES["suffix"]
+    out = ms.suffix(a, b, q, beta)
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["suffix"] == before + 1
+    assert ms.suffix_split(Lb, M) == (32 if Lb == 32 else 1)
+    assert torch.equal(out, want[ms.suffix_split(Lb, M)])
+    lib = cuda.load()
+    nl, pl, one, n0, babs = cuda.field_params(q, beta)
+    assert nl == (8 if curve == "bn128" else 12)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for k, ref in want.items():
+        got = torch.full_like(out, -1)
+        rc = lib.zkt_msm_suffix(a.data_ptr(), b.data_ptr(), got.data_ptr(), Lb, M, k, nl, int(ext), pl, one, n0,
+                                babs, stream)
+        cuda.check(rc, "suffix")
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), f"k={k}"
+
+
+def test_suffix_entry_point_refuses_bad_splits(dev):
+    """A k that is not a power of two, exceeds a block (128 threads) or
+    does not divide Lb launches nothing: the C entry point returns an error
+    code, which cuda.check raises, and the output stays as it was."""
+    from zokrates_tpu_torch.kernels import cuda
+
+    lib = cuda.load()
+    nl, pl, one, n0, babs = cuda.field_params(Q, None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    M = 8
+    a = torch.zeros((256, 48, M), dtype=torch.int32, device=dev)
+    out = torch.full((96, M), -1, dtype=torch.int32, device=dev)
+    for Lb, k in ((12, 0), (12, 3), (12, 8), (256, 256)):
+        with pytest.raises(RuntimeError, match="suffix launch failed"):
+            cuda.check(lib.zkt_msm_suffix(a.data_ptr(), a.data_ptr(), out.data_ptr(), Lb, M, k, nl, 0, pl, one, n0,
+                                          babs, stream), "suffix")
+    torch.cuda.synchronize()
+    assert bool((out == -1).all())
+
+
 @pytest.mark.parametrize("lw,W,L", [(1, 3, 5), (8, 3, 5), (128, 2, 1), (1024, 1, 32)])
 @pytest.mark.parametrize("ext", [False, True], ids=["Fq", "Fq2"])
 @pytest.mark.parametrize("curve", BLS12)
@@ -350,7 +425,7 @@ def test_msm_entry_points_refuse_unknown_widths(dev):
     p = buf.data_ptr()
     calls = {
         "walk": lambda: lib.zkt_msm_walk(p, p, p, p, 1, 1, 1, 10, 0, 1, 1, pl, one, n0, babs, stream),
-        "suffix": lambda: lib.zkt_msm_suffix(p, p, p, 1, 1, 10, 0, pl, one, n0, babs, stream),
+        "suffix": lambda: lib.zkt_msm_suffix(p, p, p, 1, 1, 1, 10, 0, pl, one, n0, babs, stream),
         "suffix_fold": lambda: lib.zkt_msm_suffix_fold(p, p, wide.data_ptr(), 1, 1, 1, 10, 0, pl, one, n0, babs,
                                                        stream),
     }

@@ -173,10 +173,10 @@ def test_split_walk_equals_plain_fq2():
 
 
 def test_walk_split_rule():
-    """S = K where the lanes alone give WALK_FILL_THREADS threads, else the
-    smallest S that cuts a lane into at most ceil(WALK_FILL_THREADS / L)
+    """S = K where the lanes alone give FILL_THREADS threads, else the
+    smallest S that cuts a lane into at most ceil(FILL_THREADS / L)
     sub-chunks; the grid's sub-chunk count stays <= 65535."""
-    fill = ms.WALK_FILL_THREADS
+    fill = ms.FILL_THREADS
     assert ms.walk_split(32, 32768) == 32
     assert ms.walk_split(512, 1024) == 32  # the h16 walk: 16 sub-chunks
     assert ms.walk_split(16, 1024) == 1

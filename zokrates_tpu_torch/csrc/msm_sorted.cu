@@ -2,7 +2,8 @@
 //
 // walk_kernel replaces the JAX package's Pallas walk
 // (zokrates_tpu/kernels/msm_sorted.py: walk_kernel_factory / _walk_call,
-// modes "mixed" and "general"); suffix_kernel replaces its suffix walk
+// modes "mixed" and "general"); suffix_kernel and suffix_split_kernel (one
+// C entry point, zkt_msm_suffix) replace its suffix walk
 // (suffix_kernel_factory / _suffix_call, fold=False); fold_ladder_kernel
 // and fold_tree_kernel (one C entry point, zkt_msm_suffix_fold) replace
 // the same kernel's fold=True epilogue (the multiplier ladder and the
@@ -51,6 +52,29 @@
 // (taken almost never) instead of the Pallas kernel's compute-and-select.
 // All windows' lanes (and all point sets sharing a plan) go in one launch.
 //
+// Suffix design: the running sum acc = sum_t T_t (T_t = A_t + B_t) and
+// the sum of running sums tot over a lane's Lb positions are one chain of
+// 3*Lb dependent complete adds, and the lanes alone (1024 at the h16 MSM)
+// fill 8 of the 132 SMs. The wrapper cuts each lane into k sub-chunks of c
+// = Lb/k positions (msm_sorted.suffix_split: a power of two, 2^14 threads
+// at most; k = 1 runs suffix_kernel, one thread per lane, as before). In
+// suffix_split_kernel thread j of a lane walks its sub-chunk from the
+// zero triple by the same loop, giving (a_j, u_j); then, since the lane's
+// running sum at a position of sub-chunk j is S_{j-1} + the local one
+// (S_j = a_0 + ... + a_j),
+//   acc = S_{k-1},   tot = sum_j w_j,  w_j = u_j + c*S_{j-1} (w_0 = u_0).
+// The lane's k threads share a block: S by an inclusive Hillis-Steele scan
+// in shared memory (log2 k levels, S_j <- S_{j-d} + S_j), c*S_{j-1} by a
+// double-and-add ladder over c's bits (as fold_ladder_kernel), the w_j by
+// the pairwise halving tree w_j <- w_j + w_{j+s}: about 3c + 2 log2 k +
+// log2 c dependent point ops a thread where one thread a lane runs 3 Lb.
+// Points sit in shared memory limb-major (word i of thread t at
+// [i*blockDim + t]): no bank conflicts for 96-288 B points. A block holds
+// 128/k lanes, lane-minor (thread l + j*(128/k)), so a warp's loads cover
+// runs of neighbouring lanes. suffix_plain replays this association add
+// for add, so both give the same limbs; the reference's sequential loop
+// gives the same group element.
+//
 // The fold epilogue is bound by operations too: per lane a ladder of up to
 // log2((lw-1)*L) complete adds and doublings, then lw-1 complete adds per
 // window in the tree, against 2*3*ER words read per lane. Where the TPU
@@ -77,6 +101,8 @@
 //           coll  (L,)             1 where the fast mixed add hit P1 == Q
 //   suffix: a, b  (Lb, 3*ER, M)    2-slot dense bucket table, descending
 //           out   (6*ER, M)        [acc | tot]: running sum and sum of sums
+//           shared memory (split)  2 x 3*ER/2 x 128 words: the scan's S_j,
+//                                  and u_j, then the tree's w_j
 //   fold:   in    (6*ER, G*lw)     the suffix output, lanes of window w at
 //                                  [w*lw, (w+1)*lw)
 //           sums  (3*ER, G*lw)     scratch: the lane sums tot + base*acc
@@ -101,6 +127,7 @@ using namespace zkt;
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kSplitThreads = 128;  // zkt_msm_suffix_block
 constexpr int kLadderThreads = 32;
 constexpr int kTreeThreads = 256;
 
@@ -214,17 +241,141 @@ __global__ void __launch_bounds__(kThreads) suffix_kernel(const int32_t* __restr
   store_jac(out, 3 * ER, Ms, lane, tot);
 }
 
-// The epilogue's point ops, out of line: each kernel calls the add from
-// two or three places, and inlining the Fq2 add at each multiplies the
-// code that ptxas allocates registers over (and its compile time).
+// The split suffix's and the epilogue's point ops, out of line: each
+// kernel calls the add from several places, and inlining the Fq2 add at
+// each multiplies the code that ptxas allocates registers over (and its
+// compile time).
 template <class E>
-__device__ __noinline__ Jac<E> fold_add(const Jac<E>& a, const Jac<E>& b, const FieldParams<E::kN>& P) {
+__device__ __noinline__ Jac<E> point_add(const Jac<E>& a, const Jac<E>& b, const FieldParams<E::kN>& P) {
   return ec_add(a, b, P);
 }
 
 template <class E>
-__device__ __noinline__ Jac<E> fold_double(const Jac<E>& a, const FieldParams<E::kN>& P) {
+__device__ __noinline__ Jac<E> point_double(const Jac<E>& a, const FieldParams<E::kN>& P) {
   return ec_double(a, P);
+}
+
+// A point in shared memory, limb-major: word i of the point at s[i*stride]
+// (s: the thread's column).
+template <int N>
+__device__ __forceinline__ void sm_put(uint32_t* s, int stride, const Fq<N>& a) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i * stride] = a.v[i];
+}
+
+template <int N>
+__device__ __forceinline__ void sm_put(uint32_t* s, int stride, const Fq2<N>& a) {
+  sm_put(s, stride, a.c0);
+  sm_put(s + N * stride, stride, a.c1);
+}
+
+template <int N>
+__device__ __forceinline__ void sm_get(Fq<N>& a, const uint32_t* s, int stride) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) a.v[i] = s[i * stride];
+}
+
+template <int N>
+__device__ __forceinline__ void sm_get(Fq2<N>& a, const uint32_t* s, int stride) {
+  sm_get(a.c0, s, stride);
+  sm_get(a.c1, s + N * stride, stride);
+}
+
+template <class E>
+__device__ __forceinline__ void sm_put_jac(uint32_t* s, const Jac<E>& p) {
+  constexpr int W = Rows<E>::value / 2;  // 32-bit words a coordinate
+  sm_put(s, kSplitThreads, p.X);
+  sm_put(s + W * kSplitThreads, kSplitThreads, p.Y);
+  sm_put(s + 2 * W * kSplitThreads, kSplitThreads, p.Z);
+}
+
+template <class E>
+__device__ __forceinline__ void sm_get_jac(Jac<E>& p, const uint32_t* s) {
+  constexpr int W = Rows<E>::value / 2;
+  sm_get(p.X, s, kSplitThreads);
+  sm_get(p.Y, s + W * kSplitThreads, kSplitThreads);
+  sm_get(p.Z, s + 2 * W * kSplitThreads, kSplitThreads);
+}
+
+// The suffix walk cut into k sub-chunks a lane (k a power of two, 2 <= k
+// <= kSplitThreads, k | Lb): thread tid = l + j*lpb of a block holds
+// sub-chunk j of lane blockIdx.x*lpb + l, lpb = kSplitThreads/k lanes a
+// block. Threads past M hold zero triples (every add of them returns at
+// once) and take part in the barriers.
+template <class E>
+__global__ void __launch_bounds__(kSplitThreads) suffix_split_kernel(const int32_t* __restrict__ a,
+                                                                      const int32_t* __restrict__ b,
+                                                                      int32_t* __restrict__ out, int Lb, int M,
+                                                                      int k, FieldParams<E::kN> P) {
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  constexpr int ER = Rows<E>::value;
+  uint32_t* scan = reinterpret_cast<uint32_t*>(split_smem) + threadIdx.x;  // S_j
+  uint32_t* part = scan + (3 * ER / 2) * kSplitThreads;                    // u_j, then w_j
+  const int lpb = kSplitThreads / k;
+  const int j = threadIdx.x / lpb;
+  const size_t lane = (size_t)blockIdx.x * lpb + threadIdx.x % lpb;
+  const bool live = lane < (size_t)M;
+  const size_t Ms = (size_t)M;
+  const int c = Lb / k;
+  Jac<E> acc, tot;
+  set_zero(acc.X);
+  set_zero(acc.Y);
+  set_zero(acc.Z);
+  tot = acc;
+  if (live) {
+    for (int t = j * c; t < (j + 1) * c; ++t) {
+      Jac<E> A, B;
+      load_jac(A, a + (size_t)t * 3 * ER * Ms, 0, Ms, lane);
+      load_jac(B, b + (size_t)t * 3 * ER * Ms, 0, Ms, lane);
+      acc = point_add(acc, point_add(A, B, P), P);
+      tot = point_add(tot, acc, P);
+    }
+  }
+  sm_put_jac(part, tot);
+  sm_put_jac(scan, acc);
+  __syncthreads();
+  // inclusive scan: acc becomes S_j
+  for (int d = 1; d < k; d <<= 1) {
+    Jac<E> prev;
+    if (j >= d) sm_get_jac(prev, scan - d * lpb);
+    __syncthreads();
+    if (j >= d) {
+      acc = point_add(prev, acc, P);
+      sm_put_jac(scan, acc);
+    }
+    __syncthreads();
+  }
+  if (live && j == k - 1) store_jac(out, 0, Ms, lane, acc);
+  // w_j = u_j + c*S_{j-1}; the ladder as fold_ladder_kernel's (bit set:
+  // res += tmp; then tmp doubles, never past c's top bit)
+  Jac<E> w;
+  if (j > 0) {
+    Jac<E> tmp, res;
+    sm_get_jac(tmp, scan - lpb);
+    set_one(res.X, P);
+    set_one(res.Y, P);
+    set_zero(res.Z);
+    for (int i = 0; (c >> i) != 0; ++i) {
+      if ((c >> i) & 1) res = point_add(res, tmp, P);
+      if ((c >> (i + 1)) != 0) tmp = point_double(tmp, P);
+    }
+    sm_get_jac(w, part);
+    w = point_add(w, res, P);
+    sm_put_jac(part, w);  // only this thread reads its own u_j
+  } else {
+    sm_get_jac(w, part);
+  }
+  // tot = sum_j w_j by the pairwise halving tree
+  for (int s = k >> 1; s >= 1; s >>= 1) {
+    __syncthreads();
+    if (j < s) {
+      Jac<E> o;
+      sm_get_jac(o, part + s * lpb);
+      w = point_add(w, o, P);
+      sm_put_jac(part, w);
+    }
+  }
+  if (live && j == 0) store_jac(out, 3 * ER, Ms, lane, w);
 }
 
 // The suffix epilogue's first pass (the reference's fold=True branch):
@@ -250,10 +401,10 @@ __global__ void __launch_bounds__(kLadderThreads) fold_ladder_kernel(const int32
   const int base = (lw - 1 - (int)(lane % lw)) * L;
   // doublings past base's top bit are never added: they are skipped
   for (int k = 0; (base >> k) != 0; ++k) {
-    if ((base >> k) & 1) res = fold_add(res, acc, P);
-    if ((base >> (k + 1)) != 0) acc = fold_double(acc, P);
+    if ((base >> k) & 1) res = point_add(res, acc, P);
+    if ((base >> (k + 1)) != 0) acc = point_double(acc, P);
   }
-  store_jac(sums, 0, Ms, lane, fold_add(tot, res, P));
+  store_jac(sums, 0, Ms, lane, point_add(tot, res, P));
 }
 
 // The second pass: one block per window. The top level adds lane i + s
@@ -278,12 +429,12 @@ __global__ void __launch_bounds__(kTreeThreads) fold_tree_kernel(const int32_t* 
       Jac<E> a, b;
       load_jac(a, sums, 0, M, first + i);
       load_jac(b, sums, 0, M, first + i + s);
-      lanes[i] = fold_add(a, b, P);
+      lanes[i] = point_add(a, b, P);
     }
   }
   for (s >>= 1; s >= 1; s >>= 1) {
     __syncthreads();
-    for (int i = threadIdx.x; i < s; i += blockDim.x) lanes[i] = fold_add(lanes[i], lanes[i + s], P);
+    for (int i = threadIdx.x; i < s; i += blockDim.x) lanes[i] = point_add(lanes[i], lanes[i + s], P);
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -338,16 +489,34 @@ int walk_at(const int32_t* q, const int32_t* flags, int32_t* out, int32_t* coll,
   return (int)cudaGetLastError();
 }
 
+template <class E>
+int launch_suffix(const int32_t* a, const int32_t* b, int32_t* out, int Lb, int M, int k,
+                  const FieldParams<E::kN>& P, cudaStream_t s) {
+  // k = 1: suffix_kernel, whose adds are inlined. suffix_split_kernel at
+  // k = 1 (the same walk through the out-of-line point_add, the combine
+  // empty) is slower at the prove's Lb = 1 shapes on an H100:
+  // port_tools/suffix_k1_ab.py times the two.
+  if (k == 1) {
+    suffix_kernel<E><<<(M + kThreads - 1) / kThreads, kThreads, 0, s>>>(a, b, out, Lb, M, P);
+    return (int)cudaGetLastError();
+  }
+  const int lpb = kSplitThreads / k;
+  const size_t smem = 2 * sizeof(Jac<E>) * kSplitThreads;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(suffix_split_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  suffix_split_kernel<E><<<(M + lpb - 1) / lpb, kSplitThreads, smem, s>>>(a, b, out, Lb, M, k, P);
+  return (int)cudaGetLastError();
+}
+
 template <int N>
-int suffix_at(const int32_t* a, const int32_t* b, int32_t* out, int Lb, int M, int ext,
+int suffix_at(const int32_t* a, const int32_t* b, int32_t* out, int Lb, int M, int k, int ext,
               const uint32_t* p, const uint32_t* one, uint32_t n0, int beta_abs, cudaStream_t s) {
   const FieldParams<N> P = make_params<N>(p, one, n0, beta_abs);
-  dim3 grid((M + kThreads - 1) / kThreads);
-  if (ext)
-    suffix_kernel<Fq2<N>><<<grid, kThreads, 0, s>>>(a, b, out, Lb, M, P);
-  else
-    suffix_kernel<Fq<N>><<<grid, kThreads, 0, s>>>(a, b, out, Lb, M, P);
-  return (int)cudaGetLastError();
+  if (ext) return launch_suffix<Fq2<N>>(a, b, out, Lb, M, k, P, s);
+  return launch_suffix<Fq<N>>(a, b, out, Lb, M, k, P, s);
 }
 
 template <int N>
@@ -377,13 +546,21 @@ int zkt_msm_walk(const int32_t* q, const int32_t* flags, int32_t* out, int32_t* 
   return (int)cudaErrorInvalidValue;
 }
 
-int zkt_msm_suffix(const int32_t* a, const int32_t* b, int32_t* out, int Lb, int M, int nl, int ext,
+// k: sub-chunks a lane, a power of two <= 128 that divides Lb (1: one
+// thread a lane); another k returns cudaErrorInvalidValue, launching
+// nothing.
+int zkt_msm_suffix(const int32_t* a, const int32_t* b, int32_t* out, int Lb, int M, int k, int nl, int ext,
                    const uint32_t* p, const uint32_t* one, uint32_t n0, int beta_abs, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (nl == 8) return suffix_at<8>(a, b, out, Lb, M, ext, p, one, n0, beta_abs, s);
-  if (nl == 12) return suffix_at<12>(a, b, out, Lb, M, ext, p, one, n0, beta_abs, s);
+  if (k < 1 || k > kSplitThreads || (k & (k - 1)) != 0 || Lb % k != 0) return (int)cudaErrorInvalidValue;
+  if (nl == 8) return suffix_at<8>(a, b, out, Lb, M, k, ext, p, one, n0, beta_abs, s);
+  if (nl == 12) return suffix_at<12>(a, b, out, Lb, M, k, ext, p, one, n0, beta_abs, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// Threads of a split suffix block, the most sub-chunks a lane (the
+// wrapper's msm_sorted.SUFFIX_BLOCK; cuda.load checks that they agree).
+int zkt_msm_suffix_block(void) { return kSplitThreads; }
 
 // in: the suffix kernel's (6*ER, G*lw) [acc | tot] rows; sums: (3*ER,
 // G*lw) scratch; out: (3, G, ER) int64 window sums. lw is a power of two

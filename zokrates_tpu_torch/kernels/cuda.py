@@ -88,7 +88,7 @@ def load() -> SimpleNamespace:
     sigs = {
         "zkt_msm": {
             "zkt_msm_walk": [P, P, P, P, I, I, I, I, I, I, I, L, L, U, I, P],
-            "zkt_msm_suffix": [P, P, P, I, I, I, I, L, L, U, I, P],
+            "zkt_msm_suffix": [P, P, P, I, I, I, I, I, L, L, U, I, P],
             "zkt_msm_suffix_fold": [P, P, P, I, I, I, I, I, L, L, U, I, P],
         },
         "zkt_field": {
@@ -121,6 +121,14 @@ def load() -> SimpleNamespace:
     err.argtypes = [I]
     err.restype = ctypes.c_char_p
     fns.zkt_error_string = err
+    from .msm_sorted import SUFFIX_BLOCK
+
+    block = libs["zkt_msm"].zkt_msm_suffix_block
+    block.argtypes = []
+    block.restype = I
+    if block() != SUFFIX_BLOCK:
+        raise RuntimeError(f"csrc/msm_sorted.cu runs {block()} threads a suffix block, "
+                           f"msm_sorted.SUFFIX_BLOCK says {SUFFIX_BLOCK}")
     _LIB = fns
     return fns
 

@@ -43,7 +43,7 @@ import torch
 from ..fields.jfield import field_spec
 from ..fields.jfield2 import small_beta
 from ..fields.limbs import LIMB_BITS
-from .pallas_field import _general_add, _mixed_add_inline, field_for
+from .pallas_field import _double_inline, _general_add, _mixed_add_inline, field_for
 
 # launches of each CUDA kernel, counted by its wrapper (plain-version runs
 # on CPU tensors are not launches), and the same by (kernel, 32-bit limbs
@@ -153,23 +153,25 @@ def walk_plain(q, flags, p: int, mode: str, safe: bool, beta=None):
     return out, coll.to(torch.int32)
 
 
-# the walk kernel's grid aims at this many threads where the lanes alone
-# fall short: about one block of 128 on each of an H100's 132 SMs. Smaller
-# sub-chunks give more threads but longer idle spans in each warp (its
-# threads' ranges start and end unevenly); chip_smoke.py's sweep of S on
-# the h16 walks times the trade.
-WALK_FILL_THREADS = 1 << 14
+# the walk and suffix kernels' grids aim at this many threads where the
+# lanes alone fall short: about one block of 128 on each of an H100's 132
+# SMs. Smaller walk sub-chunks give more threads but longer idle spans in
+# each warp (its threads' ranges start and end unevenly); twice the
+# suffix threads (two blocks an SM, shorter chains) take longer at both
+# widths. chip_smoke.py's sweeps of S on the h16 walks and of k on the
+# h16 suffix time the trade.
+FILL_THREADS = 1 << 14
 
 
 def walk_split(K: int, L: int) -> int:
     """Positions per sub-chunk S of the walk kernel for K positions on L
-    lanes: K where the lanes alone give WALK_FILL_THREADS threads (one
+    lanes: K where the lanes alone give FILL_THREADS threads (one
     thread per lane), else the smallest S that cuts a lane into at most
-    ceil(WALK_FILL_THREADS / L) sub-chunks (and at most 65535, the grid's
+    ceil(FILL_THREADS / L) sub-chunks (and at most 65535, the grid's
     y limit). The kernel runs one thread per (lane, sub-chunk)."""
-    if K <= 1 or L >= WALK_FILL_THREADS:
+    if K <= 1 or L >= FILL_THREADS:
         return max(K, 1)
-    nsub = min(-(-WALK_FILL_THREADS // L), K, 65535)
+    nsub = min(-(-FILL_THREADS // L), K, 65535)
     return -(-K // nsub)
 
 
@@ -211,22 +213,92 @@ def walk_owners(flags, S: int, qinf=None) -> np.ndarray:
     return out
 
 
-def suffix_plain(a, b, p: int, beta=None):
-    """Plain version of the suffix kernel. Same arguments and result as
-    suffix()."""
+# threads of a suffix block, which holds all k sub-chunks of its lanes
+# (csrc/msm_sorted.cu's kSplitThreads; cuda.load checks that they agree)
+SUFFIX_BLOCK = 128
+
+
+def suffix_split(Lb: int, M: int) -> int:
+    """Sub-chunks k of each lane's Lb positions in the suffix kernel on M
+    lanes: the largest power of two that divides Lb with k <= SUFFIX_BLOCK
+    and M*k <= FILL_THREADS; 1 (one thread a lane, no combine)
+    where Lb < 2 or the lanes alone reach the target. The kernel runs one
+    thread per (lane, sub-chunk)."""
+    k = 1
+    while Lb >= 2 and Lb % (2 * k) == 0 and 2 * k <= SUFFIX_BLOCK and 2 * k * M <= FILL_THREADS:
+        k *= 2
+    return k
+
+
+def suffix_plain(a, b, p: int, beta=None, k: Optional[int] = None):
+    """Plain version of the suffix kernel at k sub-chunks a lane (default
+    suffix_split(Lb, M)). Same arguments and result as suffix().
+
+    Sub-chunk j of a lane (positions [j*c, (j+1)*c), c = Lb/k) runs the
+    sequential loop from the zero triple, all (sub-chunk, lane) columns at
+    once, giving its sum a_j and sum of running sums u_j; _suffix_combine
+    then replays the kernel's combine add for add. At k = 1 this is the
+    sequential loop alone."""
     F = field_for(p, beta)
     nl = field_spec(p).nl
     en = _rows_per_coord(p, beta)
-    Lb, _, M = a.shape
-    zero = F.zeros((M,), a.device)
+    Lb, R, M = a.shape
+    k = suffix_split(Lb, M) if k is None else k
+    if k < 1 or Lb % k or k & (k - 1):
+        raise ValueError(f"suffix: k must be a power of two dividing Lb = {Lb}, got {k}")
+    c = Lb // k
+
+    def chunks(x):  # (Lb, R, M) -> (c, R, k*M), column j*M + m: sub-chunk j of lane m
+        return x.reshape(k, c, R, M).permute(1, 2, 0, 3).reshape(c, R, k * M)
+
+    a, b = chunks(a), chunks(b)
+    zero = F.zeros((k * M,), a.device)
     acc = (zero, zero, zero)
     tot = acc
-    for t in range(Lb):
+    for t in range(c):
         A = tuple(_coords(a[t], en, nl, beta))
         B = tuple(_coords(b[t], en, nl, beta))
         acc = _general_add(F, acc, _general_add(F, A, B))
         tot = _general_add(F, tot, acc)
+    if k > 1:
+        acc, tot = _suffix_combine(F, acc, tot, k, c, M)
     return _rows(acc + tot, M).contiguous()
+
+
+def _suffix_combine(F, acc, tot, k: int, c: int, M: int):
+    """The split suffix kernel's combine of a lane's sub-chunk sums: acc,
+    tot hold (a_j, u_j) at rows j*M + m. An inclusive scan S_j = a_0 + ...
+    + a_j by Hillis-Steele levels (S_j <- S_{j-d} + S_j for j >= d, d = 1,
+    2, 4, ...); w_j = u_j + c*S_{j-1} for j >= 1 (c*S_{j-1} by the
+    double-and-add ladder from infinity over c's bits), w_0 = u_0; then tot
+    = sum_j w_j by the halving tree w_j <- w_j + w_{j+s}, s = k/2, ..., 1.
+    Returns (S_{k-1}, tot) for the M lanes."""
+    def rows(P, j0, j1):
+        return tuple(x[j0 * M : j1 * M] for x in P)
+
+    def cat(*parts):
+        return tuple(torch.cat(xs) for xs in zip(*parts))
+
+    S, d = acc, 1
+    while d < k:
+        S = cat(rows(S, 0, d), _general_add(F, rows(S, 0, k - d), rows(S, d, k)))
+        d *= 2
+    tmp = rows(S, 0, k - 1)
+    one = F.ones_mont(((k - 1) * M,), tmp[0].device)
+    res = (one, one.clone(), F.zeros(((k - 1) * M,), tmp[0].device))
+    i = 0
+    while c >> i:
+        if (c >> i) & 1:
+            res = _general_add(F, res, tmp)
+        if c >> (i + 1):
+            tmp = _double_inline(F, tmp)
+        i += 1
+    w = cat(rows(tot, 0, 1), _general_add(F, rows(tot, 1, k), res))
+    s = k // 2
+    while s >= 1:
+        w = _general_add(F, rows(w, 0, s), rows(w, s, 2 * s))
+        s //= 2
+    return rows(S, k - 1, k), w
 
 
 def _check(name, t, shape, device):
@@ -288,13 +360,17 @@ def walk(q, flags, p: int, mode: str, safe: bool, beta=None):
 
 
 def suffix(a, b, p: int, beta=None):
-    """Suffix walk over the 2-slot dense bucket table (CUDA kernel
-    suffix_kernel, the reference's fold=False form).
+    """Suffix walk over the 2-slot dense bucket table (CUDA kernels
+    suffix_kernel and suffix_split_kernel, the reference's fold=False
+    form).
 
-    a, b: (Lb, 3*en, M) Jacobian rows, slot 0 and slot 1; lane m walks its
-    Lb entries in order, folding both slots into a running sum acc and a
-    sum of running sums tot. Returns (6*en, M) = [acc | tot], int32.
-    CPU tensors take suffix_plain; CUDA tensors launch the kernel."""
+    a, b: (Lb, 3*en, M) Jacobian rows, slot 0 and slot 1; lane m folds its
+    Lb entries, in order, into a running sum acc and a sum of running sums
+    tot. Returns (6*en, M) = [acc | tot], int32: the reference's group
+    elements, in the Jacobian limbs of the association suffix_plain
+    replays (k = suffix_split(Lb, M) sub-chunks a lane, combined by a
+    scan). CPU tensors take suffix_plain; CUDA tensors launch the kernel,
+    one thread per lane and sub-chunk."""
     beta = None if beta is None else small_beta(p, beta)
     en = _rows_per_coord(p, beta)
     Lb, _, M = a.shape
@@ -313,7 +389,7 @@ def suffix(a, b, p: int, beta=None):
         return out
     with torch.cuda.device(a.device):
         rc = lib.zkt_msm_suffix(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), Lb, M, nl32, int(beta is not None),
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), Lb, M, suffix_split(Lb, M), nl32, int(beta is not None),
             pl, one, n0, babs, torch.cuda.current_stream(a.device).cuda_stream,
         )
     cuda.check(rc, "suffix")
