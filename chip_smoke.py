@@ -20,9 +20,14 @@ Phases, each timed:
      length S and thread count are logged, and each suffix shape's
      sub-chunks a lane k (msm_sorted.suffix_split) and thread count;
      emul, ereduce_wide, the NTT and the matvec walk mulacc_walk (B = 1 and 16, the sha256
-     walk layout and its flush pattern) over the scalar field — outputs
-     must be bit-equal; then a full sorted MSM on the card against the
-     Python-int oracle (G1 and G2)
+     walk layout and its flush pattern) over the scalar field, emul,
+     ereduce_wide and the NTT also at the B = 16 batch's shapes (emul:
+     to_mont (16, 27281) one row, the 48 transforms' n^-1 one row and
+     coset table shared, A*B (16, 2^15) as the h stage's slices and
+     full, 1/Z, n^-1 and from_mont one row, the inverse coset table
+     shared; ereduce_wide: the walk's snapshot and row sums; the NTT:
+     48 forward, 48 and 16 inverse) — outputs must be bit-equal; then a
+     full sorted MSM on the card against the Python-int oracle (G1 and G2)
   4. main path: the sha256 circuit (bench_artifacts/sha256.out, 27,459
      constraints, domain 2^15) and its witness through the port's readers,
      setup with a seeded rng (with the shared-bucket h query h16_p128),
@@ -62,6 +67,12 @@ Phases, each timed:
      table at every k, as in phase 4; then prove_batch as in phase 5. The
      launch counts are also tallied by limb width: every MSM kernel
      launches at 12 limbs there, at no other width
+  6b. GM17 on BLS12-381: the same program as a SAP (domain 2^16), setup,
+     3 proofs, verify, the forgeries rejected, no plain version on the
+     card, every MSM kernel at 12 limbs only and emul at 12 limbs (the
+     pk's queries to Montgomery form over Fq); then emul (12 limbs over
+     Fq, 8 over r) and the NTT at that prove's shapes against their
+     plain versions
   7. BLS12-377: Groth16 setup, prove and verify on the card on a toy
      circuit (Fq2 with u^2 = -5), forgeries rejected, the MSM kernels at
      12 limbs
@@ -162,11 +173,12 @@ GM17_KERNELS = ("walk_mixed", "walk_general", "suffix", "suffix_fold", "ntt", "e
 # the variant whose time stands for each kernel in the kernels line: the
 # one the main path launches on the most data (G1; the shared-bucket h
 # MSM's walks and epilogue on a proof's own plan, its suffix on a random
-# table at the same shape; the matvec's product and reduction (COO
-# shape), the batch of 3 forward transforms, the batched matvec walk)
+# table at the same shape; the batch's coset product (48, 2^15) and the
+# walk matvec's row sums at B = 16, the batch of 3 forward transforms, the
+# batched matvec walk)
 MAIN_VARIANT = {"walk_mixed": ("Fq", "mixed-safe h16 real"), "walk_general": ("Fq", "general h16 real"),
                 "suffix": ("Fq", "fold=False h16"), "suffix_fold": ("Fq", "h16 MSM real"),
-                "emul": ("Fr", "matvec"), "ereduce_wide": ("Fr", "matvec"),
+                "emul": ("Fr", "B=16 coset"), "ereduce_wide": ("Fr", "B=16 row sums"),
                 "ntt": ("Fr", "forward x3"), "mulacc_walk": ("Fr", "B=16"),
                 "mixed_add_lm": ("Fq", "N=2^16"), "accumulate_lm": ("Fq", "16x16, 2^14 lanes")}
 
@@ -477,18 +489,28 @@ def fold_mults(ainf: np.ndarray, tinf: np.ndarray, G: int, lw: int, L: int) -> i
     return n
 
 
+def nl_of(p: int) -> int:
+    """16-bit limbs of an element mod p: 16 for the 254/255-bit fields, 24
+    for the BLS12 base fields."""
+    from zokrates_tpu_torch.fields.limbs import n_limbs
+
+    return n_limbs(p)
+
+
 def fr_elems(shape, nrng: np.random.Generator, p: int, near: float = 0.0):
-    """Canonical residues mod p as (..., 16) int64 16-bit limbs: random low
+    """Canonical residues mod p as (..., nl) int64 16-bit limbs: random low
     limbs and a top limb below p's; a share `near` of them within 2^8 of p
     instead."""
     import torch
 
-    x = nrng.integers(0, 1 << 16, tuple(shape) + (16,), dtype=np.int64)
-    x[..., -1] = nrng.integers(0, p >> 240, tuple(shape))
+    nl = nl_of(p)
+    x = nrng.integers(0, 1 << 16, tuple(shape) + (nl,), dtype=np.int64)
+    x[..., -1] = nrng.integers(0, p >> (16 * nl - 16), tuple(shape))
     if near:
         sel = nrng.random(tuple(shape)) < near
         k = nrng.integers(1, 1 << 8, int(sel.sum()))
-        x[sel] = [[((p - int(v)) >> (16 * i)) & 0xFFFF for i in range(16)] for v in k]
+        x[sel] = np.asarray([[((p - int(v)) >> (16 * i)) & 0xFFFF for i in range(nl)] for v in k],
+                            np.int64).reshape(-1, nl)
     return torch.as_tensor(x)
 
 
@@ -497,9 +519,11 @@ def check_field_kernels(fr, dev, seed: int = SEED + 2, curve: str = "bn128", tag
     path's shapes (fr: the "fr" entry of main_path_shapes or gm17_shapes)
     over the curve's fields, `tag` appended to the labels, a share `near`
     of the elements within 2^8 of the modulus: emul cases (label, field
-    "Fr" or "Fq", batch, elements, b: "shared" (L, nl), "full" (B, L, nl)
-    or "row" (stride 0)), ereduce_wide cases (label, batch, elements) and
-    the NTT's size with its cases (label, batch, inverse)."""
+    "Fr" or "Fq", batch, elements, b: "shared" (L, nl), "full" (B, L, nl),
+    "row" (stride 0) or "strided" (a and b the [:, 0] and [:, 1] slices of
+    a (B, 3, L, nl) tensor, as the h stage's A*B)), at 8 32-bit limbs or,
+    over a BLS12 base field, 12; ereduce_wide cases (label, batch,
+    elements) and the NTT's size with its cases (label, batch, inverse)."""
     import torch
     from zokrates_tpu_torch.fields import params as P
     from zokrates_tpu_torch.kernels import ntt_pallas as nk
@@ -512,19 +536,26 @@ def check_field_kernels(fr, dev, seed: int = SEED + 2, curve: str = "bn128", tag
     records = {"emul": [], "ereduce_wide": [], "ntt": []}
     for label, fname, B, L, kind in fr["emul"]:
         m = moduli[fname]
+        nl = nl_of(m)
         label += tag
-        a = fr_elems((B, L), nrng, m, near).to(dev)
-        b = {"shared": lambda: fr_elems((L,), nrng, m, near),
-             "full": lambda: fr_elems((B, L), nrng, m, near),
-             "row": lambda: fr_elems((), nrng, m, near).expand(L, 16)}[kind]().to(dev)
+        if kind == "strided":
+            abc = fr_elems((B, 3, L), nrng, m, near).to(dev)
+            a, b = abc[:, 0], abc[:, 1]
+        else:
+            a = fr_elems((B, L), nrng, m, near).to(dev)
+            b = {"shared": lambda: fr_elems((L,), nrng, m, near),
+                 "full": lambda: fr_elems((B, L), nrng, m, near),
+                 "row": lambda: fr_elems((), nrng, m, near).expand(L, nl)}[kind]().to(dev)
         out = pf.emul(m, a, b)
         torch.cuda.synchronize()
         ref, ms_p = host_ms(lambda: pf.emul_plain(m, a, b))
         ms_k = cuda_ms(lambda: pf.emul(m, a, b))
-        b_elems = {"shared": L, "full": B * L, "row": 1}[kind]
-        nbytes = ELEM_BYTES * (2 * B * L + b_elems)
-        records["emul"].append(_record("emul", fname, label, (B, L), (out,), (ref,), ms_k, ms_p,
-                                       B * L, nbytes, curve=curve))
+        b_elems = {"shared": L, "full": B * L, "strided": B * L, "row": 1}[kind]
+        nbytes = ELEM_BYTES * nl // 16 * (2 * B * L + b_elems)
+        rec = _record("emul", fname, label, (B, L), (out,), (ref,), ms_k, ms_p, B * L, nbytes, nl // 2, curve)
+        rec["b"] = kind
+        records["emul"].append(rec)
+        del a, b, out, ref
     for label, B, L in fr["ereduce_wide"]:
         label += tag
         t = torch.as_tensor(nrng.integers(0, 1 << 31, (B, L, 16), dtype=np.int64)).to(dev)
@@ -882,26 +913,50 @@ def main_path_shapes(r1cs, wit):
     fq2["fold"] = {"b2 MSM": fold_shape(g2_W, g2_Ks, cfg)}
     nnz = sum(len(row) for mat in (r1cs.A, r1cs.B, r1cs.C) for row in mat) + r1cs.num_instance
     chunk = min(N, 1 << 15)
-    fr = {"emul": [("matvec", "Fr", 1, nnz, "shared"), ("to_mont", "Fr", 1, m, "row"),
-                   ("A*B", "Fr", 1, n, "full"), ("corrections", "Fr", 3, N, "shared")],
-          "ereduce_wide": [("matvec", 1, 3 * n), ("corrections", 3, -(-N // chunk))],
-          "ntt": (n, [("forward x3", 3, False), ("inverse x3", 3, True), ("inverse x1", 1, True)])}
+    B = BATCH
+    # emul's B = 16 shapes, launches a batch: to_mont 1, the 3B inverse
+    # transforms' n^-1 and the coset table 1 each, A*B 1 (slices of the
+    # (B, 3, n) coset values), 1/Z(g), the coset ifft's n^-1 and from_mont
+    # 3, its coset table 1; ereduce_wide's: the walk's snapshot and its row
+    # sums (walk_reduce_shapes), 1 each
+    fr = {"emul": [("matvec (COO, not on the card's path)", "Fr", 1, nnz, "shared"),
+                   ("to_mont", "Fr", 1, m, "row"), ("A*B", "Fr", 1, n, "full"),
+                   ("corrections", "Fr", 3, N, "shared"),
+                   ("B=16 to_mont", "Fr", B, m, "row"), ("B=16 n^-1", "Fr", 3 * B, n, "row"),
+                   ("B=16 coset", "Fr", 3 * B, n, "shared"), ("B=16 A*B", "Fr", B, n, "strided"),
+                   ("B=16 A*B full", "Fr", B, n, "full"), ("B=16 1/Z, n^-1, from_mont", "Fr", B, n, "row"),
+                   ("B=16 coset^-1", "Fr", B, n, "shared")],
+          "ereduce_wide": [("matvec (COO, not on the card's path)", 1, 3 * n),
+                           ("corrections", 3, -(-N // chunk))],
+          "ntt": (n, [("forward x3", 3, False), ("inverse x3", 3, True), ("inverse x1", 1, True),
+                      ("B=16 forward x48", 3 * B, False), ("B=16 inverse x48", 3 * B, True),
+                      ("B=16 inverse x16", B, True)])}
     info = dict(N=N, n=n, W=W, c=cfg.c, M1=cfg.M1, lw2=cfg.lw2, split=(w0, w1, Ks, hw0, hw1), nnz=nnz)
     return {"fq": fq, "fq2": fq2, "fr": fr}, info
 
 
-def gm17_shapes(pk, dev):
-    """The kernels' shapes in a GM17 prove with this pk: the dense sorted
-    MSM over all windows at the G1 queries' padded size (a, c and h share
-    one) and at the G2 query's; the h stage's emul and NTT calls at the
-    domain size n (U, W to Montgomery form, the two inverse transforms'
-    n^-1, the coset tables, U^2, the 1/t, back from Montgomery form and
-    two_r * u, the last four over one row); and the queries' conversion
-    to Montgomery form over Fq when the pk first packs them."""
+def walk_reduce_shapes(walk):
+    """ereduce_wide's shapes behind the walk matvec (groth16._matvec_walk),
+    at B = 1 and 16: the flushed records' snapshot (P flush slots) and the
+    row sums (3n rows)."""
+    P, rows = walk.pos.numel(), walk.n_rows
+    return [("walk snapshot", 1, P), ("row sums", 1, rows),
+            ("B=16 walk snapshot", BATCH, P), ("B=16 row sums", BATCH, rows)]
+
+
+def gm17_shapes(pk, dev, curve: str = "bn128"):
+    """The kernels' shapes in a GM17 prove with this pk on the curve: the
+    dense sorted MSM over all windows at the G1 queries' padded size (a, c
+    and h share one) and at the G2 query's; the h stage's emul and NTT
+    calls at the domain size n (U, W to Montgomery form, the two inverse
+    transforms' n^-1, the coset tables, U^2, the 1/t, back from Montgomery
+    form and two_r * u, the last four over one row); and the queries'
+    conversion to Montgomery form over Fq (12 limbs on BLS12-381) when the
+    pk first packs them."""
     from zokrates_tpu_torch.fields import params as P
     from zokrates_tpu_torch.kernels.msm_sorted import _windows, default_config
 
-    r = P.SCALAR_FIELDS["bn128"].p
+    r = P.SCALAR_FIELDS[curve].p
     pkd = pk.dev(dev)
     n = pk.domain_size
 
@@ -1050,6 +1105,7 @@ def clear_launches():
     for mod in (msm_sorted, pallas_field, ntt_pallas):
         mod.LAUNCHES.clear()
     msm_sorted.WIDTH_LAUNCHES.clear()
+    pallas_field.WIDTH_LAUNCHES.clear()
 
 
 def check_forgeries(scheme, vk, proof, curve: str):
@@ -1443,8 +1499,9 @@ def profile_batch(r1cs, pk, wits, dev, rs):
     """One more prove_batch (after the launch counts were read) under
     torch.profiler: the card's busy time, the sum of the device time of
     its kernels and copies, against the batch's wall time under the
-    profiler, the kernels that take most of it, and every suffix kernel
-    (suffix_kernel, suffix_split_kernel) below those."""
+    profiler, the kernels that take most of it, every suffix kernel
+    (suffix_kernel, suffix_split_kernel) below those, and the device time
+    of emul_kernel and ntt_pass_kernel summed over their instantiations."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1468,6 +1525,10 @@ def profile_batch(r1cs, pk, wits, dev, rs):
     top = sorted(dev_ev, key=lambda e: -e.self_device_time_total)
     for e in top[:8] + [e for e in top[8:] if "suffix" in e.key]:
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    for name in ("emul_kernel", "ntt_pass_kernel"):
+        evs = [e for e in dev_ev if name in e.key]
+        log(f"  profiled {name}: {sum(e.self_device_time_total for e in evs) / 1e3:.2f} ms over "
+            f"{sum(e.count for e in evs)} launches")
 
 
 def run_bls12_381_path(dev, smi, records):
@@ -1479,7 +1540,8 @@ def run_bls12_381_path(dev, smi, records):
     with a quarter of the values within 2^8 of r), appended to `records`;
     full sorted MSMs against the oracle on BLS12-381 and BLS12-377; setup,
     NPROOFS proofs and forgeries; the batch of BATCH witnesses. Returns the
-    launch counts of the main path and of the batches."""
+    launch counts of the main path and of the batches, the r1cs and the
+    main path's witness."""
     import torch
     from zokrates_tpu_torch.ir.r1cs_device import build_mulacc_walk
     from zokrates_tpu_torch.schemes import groth16 as g
@@ -1492,6 +1554,7 @@ def run_bls12_381_path(dev, smi, records):
     wits = batch_witnesses(prog)
     shapes, info = main_path_shapes(r1cs, wits[0])
     walk = build_mulacc_walk(g._r1cs_device(r1cs, info["n"], dev))
+    shapes["fr"]["ereduce_wide"] += walk_reduce_shapes(walk)
     log(f"  {r1cs.curve}: {r1cs.num_constraints} constraints, {r1cs.num_variables} variables (read in "
         f"{t_load:.1f} s); {len(wits)} witnesses by the port's interpreter ({time.perf_counter() - t0 - t_load:.1f} "
         f"s); MSM {info}; matvec walk K={walk.K} x M={walk.M} lanes")
@@ -1517,7 +1580,7 @@ def run_bls12_381_path(dev, smi, records):
     log(f"== BLS12-381 batched path: prove_batch, B={BATCH} distinct sha256 witnesses")
     launches_batch = run_batch_path(r1cs, pk, vk, wits, dev, smi)
     log(f"  12-limb MSM launches over the batches: {check_width(12, 'the BLS12-381 batched path')}")
-    return launches, launches_batch
+    return launches, launches_batch, r1cs, wits[0]
 
 
 def toy_r1cs(curve: str):
@@ -1567,17 +1630,20 @@ def run_bls12_377_toy(dev):
 
 
 def run_gm17_path(r1cs, wit, dev, smi):
-    """GM17 on sha256: setup with a seeded rng, GM17_PROOFS proofs with
-    distinct fixed r and their stage split, with the launch counts set to 0
-    just before setup and read after the last proof; each proof verifies,
-    a tampered proof (a <-> c) and a wrong public input do not, and no
-    plain version runs on the card in the h stage or the MSMs. Returns the
-    launch counts and the proving key."""
+    """GM17 on sha256 over the r1cs's curve: setup with a seeded rng,
+    GM17_PROOFS proofs with distinct fixed r and their stage split, with the
+    launch counts set to 0 just before setup and read after the last
+    proof; each proof verifies, a tampered proof (a <-> c) and a wrong
+    public input do not, and no plain version runs on the card in the h
+    stage or the MSMs. Returns the launch counts, the launches by width
+    (the MSM kernels' and emul's) and the proving key."""
     import torch
     from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.kernels import msm_sorted, pallas_field
     from zokrates_tpu_torch.schemes import gm17
 
-    p = P.SCALAR_FIELDS["bn128"].p
+    curve = r1cs.curve
+    p = P.SCALAR_FIELDS[curve].p
     rng = random.Random(SEED + 5)
     clear_launches()
     t0 = time.perf_counter()
@@ -1599,6 +1665,7 @@ def run_gm17_path(r1cs, wit, dev, smi):
             log(f"  prove {i}: {walls[-1] * 1e3:.1f} ms  "
                 + "  ".join(f"{k}={v * 1e3:.1f}ms" for k, v in timings.items()))
     launches = launch_counts()
+    widths = {**msm_sorted.WIDTH_LAUNCHES, **pallas_field.WIDTH_LAUNCHES}
     tally.report(GM17_PROOFS, "GM17 proof")
     log(f"  plain versions on the card in the GM17 h stage and MSMs: {guard.calls or 0}")
     if guard.calls:
@@ -1607,6 +1674,7 @@ def run_gm17_path(r1cs, wit, dev, smi):
     if missing:
         raise AssertionError(f"kernels {missing} were not launched on the GM17 path: {launches}")
     log(f"  launches over setup and {GM17_PROOFS} proofs: {launches}")
+    log(f"  launches by width (kernel, 32-bit limbs): {widths}")
 
     for i, proof in enumerate(proofs):
         t0 = time.perf_counter()
@@ -1616,13 +1684,13 @@ def run_gm17_path(r1cs, wit, dev, smi):
             raise AssertionError(f"GM17 proof {i} failed to verify")
     if len({json.dumps(pr.points, sort_keys=True) for pr in proofs}) != len(proofs):
         raise AssertionError("GM17 proofs with distinct r are not distinct")
-    check_forgeries(gm17, vk, proofs[0], "bn128")
+    check_forgeries(gm17, vk, proofs[0], curve)
 
     steady = walls[1:]  # proof 0 carries the query packing and uploads
     split = {k: sum(t.get(k, 0.0) for t in splits[1:]) / len(steady) * 1e3 for k in splits[-1]}
-    log(f"  GM17 sha256 steady state: {sum(steady) / len(steady) * 1e3:.1f} ms/proof over proofs "
+    log(f"  GM17 sha256 {curve} steady state: {sum(steady) / len(steady) * 1e3:.1f} ms/proof over proofs "
         f"1..{len(walls) - 1} ({smi}): " + "  ".join(f"{k}={v:.1f}ms" for k, v in split.items()))
-    return launches, pk
+    return launches, widths, pk
 
 
 def main():
@@ -1664,6 +1732,7 @@ def main():
     prog, r1cs, wit = load_sha256()
     shapes, info = main_path_shapes(r1cs, wit)
     walk = build_mulacc_walk(g._r1cs_device(r1cs, info["n"], dev))
+    shapes["fr"]["ereduce_wide"] += walk_reduce_shapes(walk)
     log(f"  {r1cs.num_constraints} constraints, {r1cs.num_variables} variables "
         f"({time.perf_counter() - t0:.1f} s); MSM {info}; matvec walk K={walk.K} x M={walk.M} lanes, "
         f"{walk.pos.numel()} flush slots")
@@ -1693,12 +1762,27 @@ def main():
     launches_batch = run_batch_path(r1cs, pk, vk, wits, dev, smi)
     del wits
 
-    launches_bls, launches_bls_batch = run_bls12_381_path(dev, smi, records)
+    launches_bls, launches_bls_batch, r1cs_bls, wit_bls = run_bls12_381_path(dev, smi, records)
+
+    log("== GM17 BLS12-381 path: setup, prove, verify (sha256 as a SAP, 2^16)")
+    launches_gm17_bls, widths, gm17_bls_pk = run_gm17_path(r1cs_bls, wit_bls, dev, smi)
+    log(f"  12-limb MSM launches over setup and proofs: {check_width(12, 'the GM17 BLS12-381 path')}")
+    if widths.get(("emul", 12), 0) <= 0:
+        raise AssertionError(f"emul did not launch at 12 limbs on the GM17 BLS12-381 path: {widths}")
+    log("== GM17 BLS12-381 field kernel checks (emul at 12 limbs over Fq, the h stage over r; bit-equal)")
+    t0 = time.perf_counter()
+    got = check_field_kernels(gm17_shapes(gm17_bls_pk, dev, "bls12_381")["fr"], dev, SEED + 10, "bls12_381",
+                              " gm17 bls12_381", near=0.25)
+    for name, recs in got.items():
+        records[name] += recs
+    del gm17_bls_pk, r1cs_bls, wit_bls
+    log(f"  checks: {time.perf_counter() - t0:.1f} s")
+
     log("== BLS12-377: Groth16 on a toy circuit")
     run_bls12_377_toy(dev)
 
     log("== GM17 path: setup, prove, verify (sha256 as a SAP, 2^16)")
-    launches_gm17, gm17_pk = run_gm17_path(r1cs, wit, dev, smi)
+    launches_gm17, _, gm17_pk = run_gm17_path(r1cs, wit, dev, smi)
 
     log("== GM17 kernel checks (kernel vs plain version at the GM17 prove's shapes, bit-equal)")
     t0 = time.perf_counter()
@@ -1727,6 +1811,7 @@ def main():
             "launches_gm17": launches_gm17.get(name, 0),
             "launches_bls12_381": launches_bls.get(name, 0),
             "launches_bls12_381_batch": launches_bls_batch.get(name, 0),
+            "launches_gm17_bls12_381": launches_gm17_bls.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None,

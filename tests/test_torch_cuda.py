@@ -30,9 +30,15 @@ the walk split into sub-chunks (many on few lanes, and every S through
 the C entry point) over the flag patterns of test_torch_walk_split, with a
 collision planted in one lane's second segment; the epilogue at lw = 1,
 2, 128 and 1024 over one and three windows;
-canonical field elements and lazy sums near 2^31 from seeded numpy; the
-NTT at 2^10 (one pass), the prove's 2^15 and 2^16 (two) and 2^21 (three),
-batches of 1 and 3; the epilogue also at the shared-bucket h MSM's shape
+canonical field elements and lazy sums near 2^31 from seeded numpy; emul
+at 8 and 12 limbs (BN254's r, BLS12-381's q) with b shared, full, one row
+and a strided a and b, rows that leave the last tile short, and the
+batched prove's shapes ((48, 2^15) shared and one row, (16, 2^15) full,
+strided and one row, (16, 27281) one row), and the C entry point's refusal
+of a width it has no instantiation of; the NTT at 2^1, 2^2 and 2^5
+(blocks of many tiles, padding past the batch), 2^10 (one pass), 2^11,
+the prove's 2^15 and 2^16 (two) and 2^21 (three), batches of 1, 2, 3, 16
+and 48; the epilogue also at the shared-bucket h MSM's shape
 (one window of 1024 lanes); the matvec walk with runs that end at row
 changes and at lane ends; the point kernels with P at infinity, P == Q,
 P == -Q, digits 0 and >= n_buckets and buckets hit several times.
@@ -455,36 +461,75 @@ def test_wrappers_refuse_mixed_devices(dev):
 # ---------------------------------------------------------------------------
 
 R_MOD = g1_group("bn128").r
+Q381 = g1_group("bls12_381").q
 
 
-def _elems(shape, seed):
-    """Canonical scalar-field residues as (..., 16) int64 16-bit limbs."""
+def _elems(shape, seed, p=R_MOD):
+    """Canonical residues mod p as (..., nl) int64 16-bit limbs (nl = 16 for
+    a 254/255-bit p, 24 for a 381-bit one)."""
+    nl = 16 if p.bit_length() <= 256 else 24
     rng = np.random.default_rng(seed)
-    x = rng.integers(0, 1 << 16, tuple(shape) + (16,), dtype=np.int64)
-    x[..., -1] = rng.integers(0, R_MOD >> 240, tuple(shape))
+    x = rng.integers(0, 1 << 16, tuple(shape) + (nl,), dtype=np.int64)
+    x[..., -1] = rng.integers(0, p >> (16 * nl - 16), tuple(shape))
     return torch.as_tensor(x)
 
 
+def _emul_operands(kind, B, L, seed, p, dev):
+    """(a, b) for emul: b "shared" (L, nl), "full" (B, L, nl), "row" (one
+    element, row stride 0), or "strided" (a and b slices [:, 0], [:, 2] of a
+    (B, 3, L, nl) tensor, as the h stage's A*B)."""
+    nl = 16 if p.bit_length() <= 256 else 24
+    a = _elems((B, L), seed, p).to(dev)
+    if kind == "shared":
+        return a, _elems((L,), seed + 1, p).to(dev)
+    if kind == "full":
+        return a, _elems((B, L), seed + 2, p).to(dev)
+    if kind == "row":
+        return a, _elems((), seed + 3, p).to(dev).expand(L, nl)
+    abc = _elems((B, 3, L), seed + 4, p).to(dev)
+    return abc[:, 0], abc[:, 2]
+
+
+@pytest.mark.parametrize("p", [R_MOD, Q381], ids=["8limbs", "12limbs"])
 @pytest.mark.parametrize("kind", ["shared", "full", "row", "strided"])
-def test_emul_kernel_equals_plain(dev, kind):
+@pytest.mark.parametrize("B,L", [(3, 1000), (1, 1), (2, 129)])
+def test_emul_kernel_equals_plain(dev, kind, p, B, L):
     from zokrates_tpu_torch.kernels import pallas_field as pf
 
-    B, L = 3, 1000
-    a = _elems((B, L), 1).to(dev)
-    if kind == "shared":
-        b = _elems((L,), 2).to(dev)
-    elif kind == "full":
-        b = _elems((B, L), 3).to(dev)
-    elif kind == "row":
-        b = _elems((), 4).to(dev).expand(L, 16)
-    else:
-        abc = _elems((B, 3, L), 5).to(dev)
-        a, b = abc[:, 0], abc[:, 2]
+    a, b = _emul_operands(kind, B, L, 1, p, dev)
     before = pf.LAUNCHES["emul"]
-    out = pf.emul(R_MOD, a, b)
+    out = pf.emul(p, a, b)
     torch.cuda.synchronize()
     assert pf.LAUNCHES["emul"] == before + 1
+    assert torch.equal(out, pf.emul_plain(p, a, b))
+
+
+@pytest.mark.parametrize("kind,B,L", [("shared", 48, 32768), ("row", 48, 32768), ("full", 16, 32768),
+                                      ("strided", 16, 32768), ("row", 16, 32768), ("row", 16, 27281)])
+def test_emul_kernel_batch_shapes(dev, kind, B, L):
+    """The batched prove's h-stage products (B = 16 witnesses, 3B transforms)."""
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+
+    a, b = _emul_operands(kind, B, L, 40, R_MOD, dev)
+    out = pf.emul(R_MOD, a, b)
+    torch.cuda.synchronize()
     assert torch.equal(out, pf.emul_plain(R_MOD, a, b))
+
+
+def test_emul_entry_point_refuses_unknown_widths(dev):
+    """zkt_emul launches nothing for a limb count it has no instantiation
+    of (10), nor for a b row stride other than 0 or 2 * limbs."""
+    from zokrates_tpu_torch.kernels import cuda
+
+    lib = cuda.load()
+    _, pl, one, n0, _ = cuda.field_params(R_MOD, None)
+    buf = torch.zeros(1 << 12, dtype=torch.int64, device=dev)
+    p = buf.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for n32, b_rs in ((10, 20), (8, 8)):
+        with pytest.raises(RuntimeError, match="emul launch failed"):
+            cuda.check(lib.zkt_emul(p, p, p, 1, 4, 0, 0, b_rs, n32, pl, one, n0, stream), "emul")
+    torch.cuda.synchronize()
 
 
 def test_ereduce_wide_kernel_equals_plain(dev):
@@ -502,7 +547,8 @@ def test_ereduce_wide_kernel_equals_plain(dev):
     assert torch.equal(out, pf.ereduce_wide_plain(R_MOD, t))
 
 
-@pytest.mark.parametrize("logn,batch", [(10, 1), (10, 3), (15, 3), (16, 1), (21, 1)])
+@pytest.mark.parametrize("logn,batch", [(1, 1), (2, 3), (5, 2), (10, 1), (10, 3), (11, 1), (15, 3), (15, 16),
+                                        (15, 48), (16, 1), (16, 2), (21, 1)])
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
 def test_ntt_kernel_equals_plain(dev, logn, batch, inverse):
     from zokrates_tpu_torch.kernels import ntt_pallas as nk
@@ -513,8 +559,29 @@ def test_ntt_kernel_equals_plain(dev, logn, batch, inverse):
     before = nk.LAUNCHES["ntt"]
     out = nk.fft_core(dom, x, inverse)
     torch.cuda.synchronize()
-    assert nk.LAUNCHES["ntt"] == before + len(nk.pass_plan(logn))
+    assert nk.LAUNCHES["ntt"] == before + len(nk.pass_plan(logn, batch))
     assert torch.equal(out, nk.fft_core_plain(dom, x, inverse))
+
+
+def test_ntt_entry_point_refuses_bad_plans(dev):
+    """zkt_ntt_pass launches nothing for a thread map that sets one bit of
+    a block's elements twice, or a block of more than 1024 elements."""
+    from zokrates_tpu_torch.kernels import cuda
+    from zokrates_tpu_torch.kernels import ntt_pallas as nk
+
+    lib = cuda.load()
+    _, pl, one, n0, _ = cuda.field_params(R_MOD, None, cuda.NL32_FIELD)
+    buf = torch.zeros(1 << 16, dtype=torch.int64, device=dev)
+    p = buf.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    good = nk._thread_map_ints(8, 0)
+    twice = (type(good))(*good)
+    twice[1] = twice[0]  # stage 0's thread bits 0 and 1 on one bit of E
+    for tpos, log_slots in ((twice, 0), (good, 3)):
+        rc = lib.zkt_ntt_pass(p, p, p, p, 1, 8, 0, 8, log_slots, tpos, pl, one, n0, stream)
+        with pytest.raises(RuntimeError, match="ntt launch failed"):
+            cuda.check(rc, "ntt")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("lw,W,L", [(8, 5, 3), (128, 4, 1), (128, 2, 2), (1024, 1, 32)])

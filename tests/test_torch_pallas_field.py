@@ -6,6 +6,14 @@ their plain versions, against the JAX package's field ops
   * emul with b shared by the batch, per batch, one row for every element
     (row stride 0), and a taken in place from a larger tensor (a batch
     stride that is not L*nl), as the h stage calls it;
+  * emul over BLS12-381's base field (24 limbs, the width its GM17 proving
+    key's queries take on the card), b shared and one row;
+  * the CUDA emul kernel's tile walk (csrc/field_elementwise.cu), replayed
+    on the CPU: the persistent blocks' tiles cover every (batch, row) once,
+    the kernel's word offsets read a strided a and shared, full and
+    stride-0 b, ragged last tiles included, and the products equal the
+    JAX field product; its shared-memory swizzle sends a quarter warp's
+    16-byte reads to eight distinct bank groups;
   * ereduce_wide on lazy column sums up to 2^31 (the reference's u32
     headroom);
   * the wrappers' checks of dtype, shape, layout and device, and that CPU
@@ -27,6 +35,7 @@ from zokrates_tpu_torch.kernels import pallas_field as pf
 
 P = JP.SCALAR_FIELDS["bn128"].p
 NL = 16
+Q381 = JP.BASE_FIELDS["bls12_381"].p
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -44,12 +53,12 @@ def jf():
     return jfield_ops(P)
 
 
-def _elems(shape, seed):
-    """Canonical residues as (..., 16) 16-bit limbs: random low limbs and a
-    top limb below p's, so every value is below p."""
+def _elems(shape, seed, p=P, nl=NL):
+    """Canonical residues mod p as (..., nl) 16-bit limbs: random low limbs
+    and a top limb below p's, so every value is below p."""
     rng = np.random.default_rng(seed)
-    x = rng.integers(0, 1 << 16, tuple(shape) + (NL,), dtype=np.int64)
-    x[..., -1] = rng.integers(0, P >> 240, tuple(shape))
+    x = rng.integers(0, 1 << 16, tuple(shape) + (nl,), dtype=np.int64)
+    x[..., -1] = rng.integers(0, p >> (16 * nl - 16), tuple(shape))
     return x
 
 
@@ -82,6 +91,107 @@ def test_emul_matches_reference(jf, kind):
     got = pf.emul(P, ta, tb)
     assert got.shape == (B, L, NL) and got.dtype == torch.int64
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+@pytest.mark.parametrize("kind", ["shared", "row"])
+def test_emul_24_limbs_matches_reference(kind):
+    """BLS12-381's Fq (nl = 24): the queries' conversion to Montgomery form
+    (one row, R^2) and a shared table."""
+    B, L, nl = 2, 30, 24
+    a = _elems((B, L), seed=12, p=Q381, nl=nl)
+    b = _elems((L,), seed=13, p=Q381, nl=nl) if kind == "shared" else _elems((), seed=14, p=Q381, nl=nl)
+    tb = torch.as_tensor(b) if kind == "shared" else torch.as_tensor(b).expand(L, nl)
+    want = _jmul(jfield_ops(Q381), a, np.broadcast_to(b, (B, L, nl)))
+    got = pf.emul(Q381, torch.as_tensor(a), tb)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+def _chunk_slot(n32, e, c):
+    """csrc/field_elementwise.cu chunk_slot: 16-byte slot of limb c of tile
+    element e in shared memory."""
+    s = (e & 7) if n32 % 8 == 0 else ((e >> 1) & 3)
+    return e * n32 + (c ^ s)
+
+
+def _emul_tile_walk(B, L, grid, n32, a_bs, b_bs, b_rs):
+    """Word offsets that emul_kernel reads and writes, replayed: block
+    `blk` of `grid` takes tiles blk, blk + grid, ... of EMUL_TILE elements
+    of one batch row (the last of a row short), copies a's (and, unless b's
+    row stride is 0, b's) 16-byte chunks tile by tile, and stores the
+    products. Returns (out, a, b) offsets in int64 words of each element's
+    first word, by element, in the order the stores go out; b's is the row
+    read once a tile where b_rs == 0."""
+    TE = pf.EMUL_TILE
+    tpr = -(-L // TE)
+    outs, aoffs, boffs = [], [], []
+    for blk in range(grid):
+        for tile in range(blk, B * tpr, grid):
+            bi, r0 = divmod(tile, tpr)
+            r0 *= TE
+            cnt = min(TE, L - r0)
+            q = np.arange(cnt * n32)
+            e, c = q // n32, q % n32
+            slots = _chunk_slot(n32, e, c)
+            assert len(set(slots.tolist())) == cnt * n32 and slots.max() < TE * n32
+            ga = bi * a_bs + r0 * 2 * n32 + 2 * q  # the copy's source words, chunk by chunk
+            gb = bi * b_bs + r0 * 2 * n32 + 2 * q if b_rs else np.full(cnt * n32, bi * b_bs)
+            first = c == 0
+            aoffs.append(ga[first])
+            boffs.append(gb[first])
+            outs.append((bi * L + r0) * 2 * n32 + 2 * q[first])
+    return np.concatenate(outs), np.concatenate(aoffs), np.concatenate(boffs)
+
+
+@pytest.mark.parametrize("n32", [8, 12])
+def test_emul_swizzle_spreads_banks(n32):
+    """A quarter warp (8 threads, consecutive elements) reading chunk c of
+    its own element hits 8 distinct 16-byte bank groups, and the copy's 8
+    consecutive chunks land on 8 distinct groups too."""
+    for e0 in range(0, pf.EMUL_TILE, 8):
+        for c in range(n32):
+            assert len({_chunk_slot(n32, e, c) % 8 for e in range(e0, e0 + 8)}) == 8
+    q = np.arange(pf.EMUL_TILE * n32)
+    slots = _chunk_slot(n32, q // n32, q % n32)
+    assert all(len(set((slots[i:i + 8] % 8).tolist())) == 8 for i in range(0, len(q), 8))
+
+
+@pytest.mark.parametrize("kind,L,grid", [("strided", 300, 5), ("shared", 256, 1), ("row", 130, 64),
+                                         ("full", 1, 3), ("row24", 200, 2)])
+def test_emul_tile_walk_replay(jf, kind, L, grid):
+    """The kernel's tile walk over a of a (B, 3, L) tensor's [:, 0] (batch
+    stride 3*L*nl), b shared (batch stride 0), full, or one row (row
+    stride 0, at 16 and 24 limbs); L ragged (300 = 2 * 128 + 44, 130, 200)
+    or one tile, grids smaller and larger than the tile count. Every
+    (batch, row) is stored once, and the products of the words the walk
+    reads equal the JAX product."""
+    B = 3
+    p, nl = (Q381, 24) if kind == "row24" else (P, NL)
+    n32 = nl // 2
+    abc = _elems((B, 3, L), seed=20 + L, p=p, nl=nl)
+    a_flat = abc.reshape(-1)
+    a_view = abc[:, 0]
+    a_bs = 3 * L * nl
+    if kind == "strided":
+        b_flat, b_bs, b_rs, b_full = a_flat[L * nl:], 3 * L * nl, nl, abc[:, 1]
+    elif kind == "shared":
+        b = _elems((L,), seed=30, p=p, nl=nl)
+        b_flat, b_bs, b_rs, b_full = b.reshape(-1), 0, nl, np.broadcast_to(b, (B, L, nl))
+    elif kind == "full":
+        b = _elems((B, L), seed=31, p=p, nl=nl)
+        b_flat, b_bs, b_rs, b_full = b.reshape(-1), L * nl, nl, b
+    else:
+        b = _elems((), seed=32, p=p, nl=nl)
+        b_flat, b_bs, b_rs, b_full = b.reshape(-1), 0, 0, np.broadcast_to(b, (B, L, nl))
+    out_off, a_off, b_off = _emul_tile_walk(B, L, grid, n32, a_bs, b_bs, b_rs)
+    assert np.array_equal(np.sort(out_off), np.arange(B * L) * nl)  # every element stored once
+    words = np.arange(nl)
+    av = a_flat[a_off[:, None] + words]
+    bv = b_flat[b_off[:, None] + words]
+    got = np.empty(B * L * nl, np.int64)
+    got[out_off[:, None] + words] = pf.emul_plain(p, torch.as_tensor(av), torch.as_tensor(bv)).numpy()
+    field = jf if p == P else jfield_ops(p)
+    want = _jmul(field, np.ascontiguousarray(a_view), np.ascontiguousarray(b_full))
+    np.testing.assert_array_equal(got.reshape(B, L, nl), want.astype(np.int64))
 
 
 @pytest.mark.parametrize("top", [1 << 16, 1 << 31], ids=["small", "near_2^31"])

@@ -37,9 +37,9 @@ HEADERS = [os.path.join(CSRC, "field.cuh")]
 ARCH = "arch=compute_90a,code=sm_90a"
 # 32-bit limbs per element the kernels are instantiated for: 8 (BN254's
 # fields, the BLS12 scalar fields) and 12 (the BLS12 base fields; the MSM
-# kernels of msm_sorted.cu only)
+# kernels of msm_sorted.cu and emul)
 NL32 = (8, 12)
-# the widths of the other kernels (elementwise, NTT, matvec walk, point
+# the widths of the other kernels (ereduce_wide, NTT, matvec walk, point
 # kernels, probe)
 NL32_FIELD = (8,)
 
@@ -92,11 +92,12 @@ def load() -> SimpleNamespace:
             "zkt_msm_suffix_fold": [P, P, P, I, I, I, I, I, L, L, U, I, P],
         },
         "zkt_field": {
-            "zkt_emul": [P, P, P, LL, LL, LL, LL, LL, L, L, U, P],
+            "zkt_emul": [P, P, P, LL, LL, LL, LL, LL, I, L, L, U, P],
+            "zkt_emul_tile": [],
             "zkt_ereduce_wide": [P, P, LL, L, L, L, U, P],
         },
         "zkt_ntt": {
-            "zkt_ntt_pass": [P, P, P, P, I, I, I, I, I, L, L, U, P],
+            "zkt_ntt_pass": [P, P, P, P, I, I, I, I, I, P, L, L, U, P],
         },
         "zkt_mulacc": {
             "zkt_mulacc_walk": [P, P, P, P, I, I, I, L, L, U, P],
@@ -129,6 +130,11 @@ def load() -> SimpleNamespace:
     if block() != SUFFIX_BLOCK:
         raise RuntimeError(f"csrc/msm_sorted.cu runs {block()} threads a suffix block, "
                            f"msm_sorted.SUFFIX_BLOCK says {SUFFIX_BLOCK}")
+    from .pallas_field import EMUL_TILE
+
+    if fns.zkt_emul_tile() != EMUL_TILE:
+        raise RuntimeError(f"csrc/field_elementwise.cu runs tiles of {fns.zkt_emul_tile()} elements, "
+                           f"pallas_field.EMUL_TILE says {EMUL_TILE}")
     _LIB = fns
     return fns
 

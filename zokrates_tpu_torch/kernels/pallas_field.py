@@ -39,6 +39,11 @@ from ..fields.jfield2 import field_ops2
 # launches of each CUDA kernel, counted by its wrapper (plain-version runs
 # on CPU tensors are not launches)
 LAUNCHES: Counter = Counter()
+# emul's launches by width: (kernel, 32-bit limbs) -> launches
+WIDTH_LAUNCHES: Counter = Counter()
+# elements a tile of csrc/field_elementwise.cu's emul_kernel (its
+# zkt_emul_tile(); kernels/cuda.load checks that they agree)
+EMUL_TILE = 128
 
 
 def field_for(p: int, beta=None):
@@ -181,7 +186,8 @@ def _check_aligned(name, t, batch_stride: int):
 
 def emul(p: int, a, b):
     """Elementwise Montgomery product a*b*R^-1 mod p (CUDA kernel
-    emul_kernel, the reference's emul).
+    emul_kernel, the reference's emul), over a field of 16 or 24 16-bit
+    limbs (8 or 12 32-bit limbs on the card).
 
     a: (B, L, nl) int64 16-bit limbs with packed rows (any batch stride, so
     a[:, i] of a larger array is taken in place); b: (L, nl), shared by the
@@ -213,15 +219,16 @@ def emul(p: int, a, b):
     _check_aligned("a", a, a_bs)
     _check_aligned("b", b, b_bs)
     lib = cuda.load()
-    _, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32_FIELD)
+    n32, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32)
     out = torch.empty((B, L, nl), dtype=torch.int64, device=a.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(a.device):
-        rc = lib.zkt_emul(a.data_ptr(), b.data_ptr(), out.data_ptr(), B, L, a_bs, b_bs, b_rs,
+        rc = lib.zkt_emul(a.data_ptr(), b.data_ptr(), out.data_ptr(), B, L, a_bs, b_bs, b_rs, n32,
                           pl, one, n0, torch.cuda.current_stream(a.device).cuda_stream)
     cuda.check(rc, "emul")
     LAUNCHES["emul"] += 1
+    WIDTH_LAUNCHES[("emul", n32)] += 1
     return out
 
 
