@@ -19,15 +19,17 @@ Phases, each timed:
      MSM's (three queries on one plan); each walk shape's sub-chunk
      length S and thread count are logged, and each suffix shape's
      sub-chunks a lane k (msm_sorted.suffix_split) and thread count;
-     emul, ereduce_wide, the NTT and the matvec walk mulacc_walk (B = 1 and 16, the sha256
-     walk layout and its flush pattern) over the scalar field, emul,
-     ereduce_wide and the NTT also at the B = 16 batch's shapes (emul:
-     to_mont (16, 27281) one row, the 48 transforms' n^-1 one row and
-     coset table shared, A*B (16, 2^15) as the h stage's slices and
-     full, 1/Z, n^-1 and from_mont one row, the inverse coset table
-     shared; ereduce_wide: the walk's snapshot and row sums; the NTT:
-     48 forward, 48 and 16 inverse) — outputs must be bit-equal; then a
-     full sorted MSM on the card against the Python-int oracle (G1 and G2)
+     emul, ereduce_wide, the NTT and the matvec walk mulacc_walk (B = 1 and
+     16, on the sha256 circuit's walk plans at the lanes the path takes,
+     groth16.walk_lanes, and at the reference's 1024 lanes) over the
+     scalar field, emul, ereduce_wide and the NTT also at the B = 16
+     batch's shapes (emul: to_mont (16, 27281) one row, the 48
+     transforms' n^-1 one row and coset table shared, A*B (16, 2^15) as
+     the h stage's slices and full, 1/Z, n^-1 and from_mont one row, the
+     inverse coset table shared; ereduce_wide: the walk's flush slots at
+     the path's plans and the row sums; the NTT: 48 forward, 48 and 16
+     inverse) — outputs must be bit-equal; then a full sorted MSM on the
+     card against the Python-int oracle (G1 and G2)
   4. main path: the sha256 circuit (bench_artifacts/sha256.out, 27,459
      constraints, domain 2^15) and its witness through the port's readers,
      setup with a seeded rng (with the shared-bucket h query h16_p128),
@@ -50,7 +52,9 @@ Phases, each timed:
      verifies, proofs 0 and 1 equal prove() of the same witness with the
      same r, s byte for byte, the launch counts (set to 0 before the
      first batch) are above 0, and no plain version runs on the card;
-     one more batch under torch.profiler gives the card's busy time
+     one more batch under torch.profiler gives the card's busy time;
+     then groth16._matvec_walk at B = 1 and 16 (device time and its
+     steps by CUDA events) and the peak allocation of one B = 16 h stage
   6. BLS12-381 path: the same sha256 program compiled for bls12_381
      (port_artifacts/sha256_bls12_381.out.gz, read with gzip) and 16
      witnesses from the port's interpreter (preimage [16b, ..., 16b + 15];
@@ -64,7 +68,8 @@ Phases, each timed:
      its coordinates, packed on the card into rows of 144 words), 3 proofs
      verified, a tampered proof and a wrong public input rejected; the h
      MSM shared-bucket against dense, and its h16 suffix on a proof's own
-     table at every k, as in phase 4; then prove_batch as in phase 5. The
+     table at every k, as in phase 4; then prove_batch, the matvec's
+     steps and the h stage's peak allocation as in phase 5. The
      launch counts are also tallied by limb width: every MSM kernel
      launches at 12 limbs there, at no other width
   6b. GM17 on BLS12-381: the same program as a SAP (domain 2^16), setup,
@@ -115,7 +120,9 @@ derivation, with the measured ratio beside it in PERF.md.
 Bytes: inputs read once and outputs written once, over 3.35 TB/s. Field
 elements cross every kernel boundary as int64 words of 16-bit limbs (128 B
 per element), point rows as int32 words of 16-bit limbs (64 B per Fq
-coordinate on BN254, 96 B on the BLS12 curves).
+coordinate on BN254, 96 B on the BLS12 curves); the matvec walk's plan
+holds its coefficients as 32-bit limbs (32 B a record) and int32 columns
+and flags, and it writes the flushed runs only (mulacc_bytes).
 """
 
 from __future__ import annotations
@@ -179,7 +186,7 @@ GM17_KERNELS = ("walk_mixed", "walk_general", "suffix", "suffix_fold", "ntt", "e
 MAIN_VARIANT = {"walk_mixed": ("Fq", "mixed-safe h16 real"), "walk_general": ("Fq", "general h16 real"),
                 "suffix": ("Fq", "fold=False h16"), "suffix_fold": ("Fq", "h16 MSM real"),
                 "emul": ("Fr", "B=16 coset"), "ereduce_wide": ("Fr", "B=16 row sums"),
-                "ntt": ("Fr", "forward x3"), "mulacc_walk": ("Fr", "B=16"),
+                "ntt": ("Fr", "forward x3"), "mulacc_walk": ("Fr", f"B={BATCH}"),
                 "mixed_add_lm": ("Fq", "N=2^16"), "accumulate_lm": ("Fq", "16x16, 2^14 lanes")}
 
 
@@ -581,34 +588,125 @@ def check_field_kernels(fr, dev, seed: int = SEED + 2, curve: str = "bn128", tag
     return records
 
 
-def check_mulacc(walk, dev, curve: str = "bn128", tag: str = "", near: float = 0.0):
-    """mulacc_walk against its plain version at the main path's shapes: the
-    sha256 walk layout (K records on 1024 lanes) and its flush flags, at
-    B = 1 (prove) and B = 16 (prove_batch), with seeded canonical z and
-    coefficients mod the curve's r (a share `near` within 2^8 of r).
-    Bound: every record is one product; bytes are z and the output per
-    proof and record, the coefficients and flags once."""
+def path_walks(rdev):
+    """The walk plans of the h stage's matvec on this R1CSDevice:
+    {B: plan} for B = 1 (prove) and BATCH (prove_batch), at the lanes
+    groth16.walk_lanes picks."""
+    from zokrates_tpu_torch.ir.r1cs_device import build_mulacc_walk
+    from zokrates_tpu_torch.schemes import groth16 as g
+
+    L = sum(mat.rows_np.size for mat in (rdev.A, rdev.B, rdev.C))
+    return {B: build_mulacc_walk(rdev, g.walk_lanes(B, L)) for B in (1, BATCH)}
+
+
+def mulacc_bytes(w, B: int, m: int, runs: int) -> int:
+    """Bytes the function of mulacc_walk must move on plan w for B proofs
+    of m variables, each read or written once: z (128 B a variable and
+    proof), each real record's packed coefficient, column and flag (40 B),
+    and the lazy sums of `runs` runs of the 3n rows (128 B a run and
+    proof). The plan's padded records and the slots of their runs and of
+    the padding are layout, not work, and are not counted."""
+    return ELEM_BYTES * B * m + (32 + 4 + 4) * w.n_records + ELEM_BYTES * B * runs
+
+
+def check_mulacc(rdev, dev, curve: str = "bn128", tag: str = "", near: float = 0.0):
+    """mulacc_walk against its plain version, bit for bit, on the circuit's
+    walk plans: at B = 1 (prove) and B = 16 (prove_batch), each at the
+    lanes the path takes (path_walks) and at the reference's 1024, with
+    seeded canonical z mod the curve's r (a share `near` within 2^8 of r).
+    Bound: one product a real record and proof; bytes as mulacc_bytes,
+    with the runs of the 3n rows of whichever layout has fewer, the path's
+    or the reference's (the same bound at every lane count)."""
     import torch
     from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.ir.r1cs_device import REFERENCE_LANES, build_mulacc_walk
     from zokrates_tpu_torch.kernels import pallas_field as pf
 
     p = P.SCALAR_FIELDS[curve].p
+    m = rdev.num_variables
     nrng = np.random.default_rng(SEED + 3)
-    K, M = walk.K, walk.M
-    coeff = fr_elems((K, M), nrng, p, near).permute(0, 2, 1).contiguous().to(dev)
-    flags = walk.flags_walk
     records = []
-    for B in (1, BATCH):
-        z = fr_elems((B, K, M), nrng, p, near).permute(0, 1, 3, 2).contiguous().to(dev)
-        out = pf.mulacc_walk(p, z, coeff, flags)
-        torch.cuda.synchronize()
-        ref, ms_p = host_ms(lambda: pf.mulacc_walk_plain(p, z, coeff, flags))
-        ms_k = cuda_ms(lambda: pf.mulacc_walk(p, z, coeff, flags))
-        nbytes = ELEM_BYTES * (2 * B * K * M + K * M) + 4 * K * M
-        records.append(_record("mulacc_walk", "Fr", f"B={B}" + tag, (B, K, 16, M), (out,), (ref,), ms_k, ms_p,
-                               B * K * M, nbytes, curve=curve))
-        del z, out, ref
+    w_ref = build_mulacc_walk(rdev, REFERENCE_LANES)
+    for B, w_path in path_walks(rdev).items():
+        z = fr_elems((B, m), nrng, p, near).to(dev)
+        for w in [w_path] + ([w_ref] if w_ref.M != w_path.M else []):
+            label = f"B={B}" + ("" if w is w_path else f" {w.M} lanes") + tag
+            out = pf.mulacc_walk(p, z, w)
+            torch.cuda.synchronize()
+            ref, ms_p = host_ms(lambda: pf.mulacc_walk_plain(p, z, w))
+            ms_k = cuda_ms(lambda: pf.mulacc_walk(p, z, w))
+            runs = min(w_path.n_row_flush, w_ref.n_row_flush)
+            rec = _record("mulacc_walk", "Fr", label, (B, w.K, w.M), (out,), (ref,), ms_k, ms_p,
+                          B * w.n_records, mulacc_bytes(w, B, m, runs), curve=curve)
+            rec.update(lanes=w.M, slots=w.pos.numel(), n_flush=w.n_flush)
+            records.append(rec)
+            del out, ref
+        del z
     return {"mulacc_walk": records}
+
+
+def matvec_steps(p, rdev, Z, reps: int = 5):
+    """Median ms of each step of groth16._matvec_walk over `reps` runs of
+    its steps, replayed here between CUDA events (host gaps between the
+    steps' launches included): mulacc_walk (the pack and the walk), the
+    reduction of the slots, the row sums, the reduction of the rows."""
+    import torch
+    from zokrates_tpu_torch.ir.r1cs_device import build_mulacc_walk
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+    from zokrates_tpu_torch.schemes import groth16 as g
+
+    B, _, nl = Z.shape
+    L = sum(mat.rows_np.size for mat in (rdev.A, rdev.B, rdev.C))
+    w = build_mulacc_walk(rdev, g.walk_lanes(B, L))
+    names = ("mulacc", "ereduce snap", "index_add", "ereduce rows")
+    runs = []
+    for _ in range(reps):
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        evs[0].record()
+        snap = pf.mulacc_walk(p, Z, w)
+        evs[1].record()
+        part = pf.ereduce_wide(p, snap)
+        del snap
+        evs[2].record()
+        sums = torch.zeros((B, w.n_rows, nl), dtype=torch.int64, device=Z.device)
+        sums.index_add_(1, w.seg[: w.n_row_flush], part[:, : w.n_row_flush])
+        evs[3].record()
+        pf.ereduce_wide(p, sums)
+        evs[4].record()
+        torch.cuda.synchronize()
+        runs.append([evs[i].elapsed_time(evs[i + 1]) for i in range(len(names))])
+    return {name: float(np.median([r[i] for r in runs])) for i, name in enumerate(names)}
+
+
+def log_matvec(r1cs, dev, curve: str):
+    """groth16._matvec_walk at B = 1 and BATCH on random canonical z: its
+    device time (cuda_ms) and its steps (matvec_steps); then the peak
+    allocation of one B = BATCH groth16._h_stage above what was allocated
+    before it."""
+    import torch
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.schemes import groth16 as g
+
+    p = P.SCALAR_FIELDS[curve].p
+    n = 1 << (r1cs.num_constraints + r1cs.num_instance - 1).bit_length()
+    rdev = g._r1cs_device(r1cs, n, dev)
+    nrng = np.random.default_rng(SEED + 4)
+    for B, w in path_walks(rdev).items():
+        Z = fr_elems((B, r1cs.num_variables), nrng, p).to(dev)
+        ms = cuda_ms(lambda: g._matvec_walk(p, rdev, Z))
+        parts = matvec_steps(p, rdev, Z)
+        log(f"  _matvec_walk {curve} B={B} ({w.M} lanes, K={w.K}, {w.pos.numel()} slots): {ms:.4f} ms; steps: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + " ms")
+        if B == BATCH:
+            g._h_stage(curve, rdev, Z)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            g._h_stage(curve, rdev, Z)
+            torch.cuda.synchronize()
+            log(f"  _h_stage {curve} B={B}: peak allocation {(torch.cuda.max_memory_allocated() - base) / 1e9:.3f} GB "
+                f"above the {base / 1e9:.3f} GB before it")
+        del Z
 
 
 def check_msm_oracle(dev, N: int = 8192, curve: str = "bn128"):
@@ -935,13 +1033,17 @@ def main_path_shapes(r1cs, wit):
     return {"fq": fq, "fq2": fq2, "fr": fr}, info
 
 
-def walk_reduce_shapes(walk):
+def walk_summary(walks) -> str:
+    return "matvec walk plans " + ", ".join(f"B={B}: K={w.K} x M={w.M} lanes, {w.pos.numel()} slots"
+                                             for B, w in walks.items())
+
+
+def walk_reduce_shapes(walks):
     """ereduce_wide's shapes behind the walk matvec (groth16._matvec_walk),
-    at B = 1 and 16: the flushed records' snapshot (P flush slots) and the
-    row sums (3n rows)."""
-    P, rows = walk.pos.numel(), walk.n_rows
-    return [("walk snapshot", 1, P), ("row sums", 1, rows),
-            ("B=16 walk snapshot", BATCH, P), ("B=16 row sums", BATCH, rows)]
+    at B = 1 and 16: the flush slots of the plan the path takes at that B
+    (walks: path_walks) and the row sums (3n rows)."""
+    return [(("" if B == 1 else f"B={B} ") + label, B, L) for B, w in walks.items()
+            for label, L in (("walk slots", w.pos.numel()), ("row sums", w.n_rows))]
 
 
 def gm17_shapes(pk, dev, curve: str = "bn128"):
@@ -1495,13 +1597,24 @@ def run_batch_path(r1cs, pk, vk, wits, dev, smi):
     return launches
 
 
+# kernels of the h stage: the wrapper's launch counter -> the kernel names
+# (substrings) the profiler records for its launches
+PROFILED_KERNELS = {"emul": ("emul_kernel",), "ntt": ("ntt_pass_kernel",),
+                    "mulacc_walk": ("::pack_kernel(", "::mulacc_kernel("), "ereduce_wide": ("ereduce",)}
+
+
 def profile_batch(r1cs, pk, wits, dev, rs):
     """One more prove_batch (after the launch counts were read) under
     torch.profiler: the card's busy time, the sum of the device time of
     its kernels and copies, against the batch's wall time under the
     profiler, the kernels that take most of it, every suffix kernel
     (suffix_kernel, suffix_split_kernel) below those, and the device time
-    of emul_kernel and ntt_pass_kernel summed over their instantiations."""
+    of emul_kernel and ntt_pass_kernel summed over their instantiations.
+    Checks that the profiler recorded every launch of the h stage's
+    kernels that their wrappers counted in the batch (PROFILED_KERNELS)
+    and logs both counts: the profiler can drop a kernel's record
+    (PERF.md), and then the busy time is short by its device time. Returns
+    {"busy_ms", "wall_ms", "counted", "profiled"}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1509,17 +1622,25 @@ def profile_batch(r1cs, pk, wits, dev, rs):
 
     draws = iter(rs)
     torch.cuda.synchronize()
+    before = launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         g.prove_batch(r1cs, pk, wits, rng=lambda: next(draws), device=dev)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    after = launch_counts()
     dev_ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in dev_ev) / 1e3
+    counted = {k: after.get(k, 0) - before.get(k, 0) for k in PROFILED_KERNELS}
+    profiled = {k: sum(e.count for e in dev_ev if any(n in e.key for n in names))
+                for k, names in PROFILED_KERNELS.items()}
+    res = {"busy_ms": busy, "wall_ms": wall, "counted": counted, "profiled": profiled}
+    log(f"  profiled prove_batch: launches counted by the wrappers {counted}, recorded by the profiler "
+        f"{profiled}")
     if busy <= 0:
         log(f"  profiled prove_batch: {wall:.1f} ms wall; device busy time not measured "
             "(the profiler recorded no device events)")
-        return
+        return res
     log(f"  profiled prove_batch: {wall:.1f} ms wall, device busy {busy:.1f} ms "
         f"(idle share {1 - busy / wall:.3f}); top device time, then the other suffix kernels:")
     top = sorted(dev_ev, key=lambda e: -e.self_device_time_total)
@@ -1529,6 +1650,9 @@ def profile_batch(r1cs, pk, wits, dev, rs):
         evs = [e for e in dev_ev if name in e.key]
         log(f"  profiled {name}: {sum(e.self_device_time_total for e in evs) / 1e3:.2f} ms over "
             f"{sum(e.count for e in evs)} launches")
+    if profiled != counted:
+        log("  WARNING: the profiler missed launches of the batch; its busy time is short by their device time")
+    return res
 
 
 def run_bls12_381_path(dev, smi, records):
@@ -1543,7 +1667,6 @@ def run_bls12_381_path(dev, smi, records):
     launch counts of the main path and of the batches, the r1cs and the
     main path's witness."""
     import torch
-    from zokrates_tpu_torch.ir.r1cs_device import build_mulacc_walk
     from zokrates_tpu_torch.schemes import groth16 as g
 
     curve, tag = "bls12_381", " bls12_381"
@@ -1553,17 +1676,18 @@ def run_bls12_381_path(dev, smi, records):
     t_load = time.perf_counter() - t0
     wits = batch_witnesses(prog)
     shapes, info = main_path_shapes(r1cs, wits[0])
-    walk = build_mulacc_walk(g._r1cs_device(r1cs, info["n"], dev))
-    shapes["fr"]["ereduce_wide"] += walk_reduce_shapes(walk)
+    rdev = g._r1cs_device(r1cs, info["n"], dev)
+    walks = path_walks(rdev)
+    shapes["fr"]["ereduce_wide"] += walk_reduce_shapes(walks)
     log(f"  {r1cs.curve}: {r1cs.num_constraints} constraints, {r1cs.num_variables} variables (read in "
         f"{t_load:.1f} s); {len(wits)} witnesses by the port's interpreter ({time.perf_counter() - t0 - t_load:.1f} "
-        f"s); MSM {info}; matvec walk K={walk.K} x M={walk.M} lanes")
+        f"s); MSM {info}; {walk_summary(walks)}")
 
     log("== BLS12-381 kernel checks (kernel vs plain version at the prove's shapes, bit-equal)")
     t0 = time.perf_counter()
     for got in (check_kernels(shapes, dev, tag, SEED + 8, curve),
                 check_field_kernels(shapes["fr"], dev, SEED + 9, curve, tag, near=0.25),
-                check_mulacc(walk, dev, curve, tag, near=0.25)):
+                check_mulacc(rdev, dev, curve, tag, near=0.25)):
         for name, recs in got.items():
             records[name] += recs
     for c in ("bls12_381", "bls12_377"):
@@ -1580,6 +1704,7 @@ def run_bls12_381_path(dev, smi, records):
     log(f"== BLS12-381 batched path: prove_batch, B={BATCH} distinct sha256 witnesses")
     launches_batch = run_batch_path(r1cs, pk, vk, wits, dev, smi)
     log(f"  12-limb MSM launches over the batches: {check_width(12, 'the BLS12-381 batched path')}")
+    log_matvec(r1cs, dev, curve)
     return launches, launches_batch, r1cs, wits[0]
 
 
@@ -1699,7 +1824,6 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
     sys.path.insert(0, ROOT)
-    from zokrates_tpu_torch.ir.r1cs_device import build_mulacc_walk
     from zokrates_tpu_torch.kernels import cuda
     from zokrates_tpu_torch.native import available as native_available
     from zokrates_tpu_torch.schemes import groth16 as g
@@ -1731,17 +1855,17 @@ def main():
     t0 = time.perf_counter()
     prog, r1cs, wit = load_sha256()
     shapes, info = main_path_shapes(r1cs, wit)
-    walk = build_mulacc_walk(g._r1cs_device(r1cs, info["n"], dev))
-    shapes["fr"]["ereduce_wide"] += walk_reduce_shapes(walk)
+    rdev = g._r1cs_device(r1cs, info["n"], dev)
+    walks = path_walks(rdev)
+    shapes["fr"]["ereduce_wide"] += walk_reduce_shapes(walks)
     log(f"  {r1cs.num_constraints} constraints, {r1cs.num_variables} variables "
-        f"({time.perf_counter() - t0:.1f} s); MSM {info}; matvec walk K={walk.K} x M={walk.M} lanes, "
-        f"{walk.pos.numel()} flush slots")
+        f"({time.perf_counter() - t0:.1f} s); MSM {info}; {walk_summary(walks)}")
 
     log("== kernel checks (kernel vs plain version, bit-equal)")
     t0 = time.perf_counter()
     records = check_kernels(shapes, dev)
     records.update(check_field_kernels(shapes["fr"], dev))
-    records.update(check_mulacc(walk, dev))
+    records.update(check_mulacc(rdev, dev))
     check_msm_oracle(dev)
     log(f"  checks: {time.perf_counter() - t0:.1f} s")
 
@@ -1761,6 +1885,7 @@ def main():
     log(f"  {len(wits)} witnesses by the port's interpreter: {time.perf_counter() - t0:.1f} s")
     launches_batch = run_batch_path(r1cs, pk, vk, wits, dev, smi)
     del wits
+    log_matvec(r1cs, dev, "bn128")
 
     launches_bls, launches_bls_batch, r1cs_bls, wit_bls = run_bls12_381_path(dev, smi, records)
 

@@ -1,5 +1,6 @@
-"""A/B of the scalar-field kernels (emul, ereduce_wide, the NTT) on a CUDA
-card, at the shapes the prove launches them with.
+"""A/B of the scalar-field kernels (emul, ereduce_wide, the NTT) and of
+the h stage's matvec (mulacc_walk, groth16._matvec_walk, groth16._h_stage)
+on a CUDA card, at the shapes the prove launches them with.
 
 Imports the port's package from --root (this checkout by default, or
 another tree of the repository unpacked beside it, e.g. a parent commit
@@ -9,14 +10,31 @@ wrapper with chip_smoke.cuda_ms (CUDA events around 20 calls behind a spin
 kernel), three readings a shape, after checking its output bit-equal to
 the plain version's. Shapes: BN254's B = 1 prove and the B = 16 batch
 (emul to_mont, n^-1, coset tables, A*B as slices of the coset values and
-contiguous, 1/Z and from_mont; ereduce_wide on the walk matvec's snapshot
-and row sums; transforms of 3, 1, 48 and 16 arrays of 2^15), GM17's
-(2^16), and emul at 12 limbs over BLS12-381's base field, which a tree
-without that width reports as refused. Inputs are seeded (numpy), the
-same in every tree. Prints the card (nvidia-smi) and one JSON object a
-shape; --out appends them to a file.
+contiguous, 1/Z and from_mont; ereduce_wide on the walk matvec's flush
+slots at the reference's 1024 lanes (P = 90,112) and at the lanes
+groth16.walk_lanes takes (B = 1: P = 114,688; B = 16: P = 98,304, the
+row sums' size), the row sums, and the corrections' (3, 1) and (1, 3);
+transforms of 3, 1, 48 and 16 arrays of 2^15), GM17's (2^16), and emul at
+12 limbs over BLS12-381's base field, which a tree without that width
+reports as refused. Inputs are seeded (numpy), the same in every tree.
 
-Usage: python3 port_tools/field_ab.py [--root DIR] [--label NAME] [--out FILE]
+Then, on the sha256 circuit over BN254 and BLS12-381 (bench_artifacts/,
+port_artifacts/), with random canonical z at B = 1 and 16: mulacc_walk
+on the tree's walk plans (a tree whose mulacc_walk takes (p, Z_mont,
+walk): at 1024 to 32768 lanes, each with _matvec_walk on that plan; one
+that takes the gathered z: its 1024 lanes), each against its plain
+version; groth16._matvec_walk at the tree's own lanes from entry
+to return (cuda_ms, and the host's wall clock around one synchronized
+call, median of 5), with a CUDA-event breakdown of its steps, replayed
+(chip_smoke.matvec_steps for a tree with the new mulacc_walk; else the
+z gather, mulacc, the flushed records' gather, the two ereduce_wide
+calls, index_add_); and one B = 16 groth16._h_stage: its time and
+torch.cuda.max_memory_allocated above what was allocated before it.
+
+Prints the card (nvidia-smi) and one JSON object a shape; --out appends
+them to a file.
+
+Usage: python3 port_tools/field_ab.py [--root DIR] [--label NAME] [--out FILE] [--matvec-only]
 """
 import argparse
 import importlib.util
@@ -30,7 +48,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 M_SHA256, N_SHA256 = 27281, 1 << 15  # sha256's variables and QAP domain
-SNAP, ROWS = 90112, 3 * N_SHA256     # the walk matvec's flush slots and rows
+SNAP, ROWS = 90112, 3 * N_SHA256     # the walk matvec's flush slots at 1024 lanes, and rows
+LANES = [1 << k for k in range(10, 16)]  # the walk's lane counts timed
 EMUL = [  # (label, field, B, L, b)
     ("to_mont", "r", 1, M_SHA256, "row"), ("A*B", "r", 1, N_SHA256, "full"),
     ("corrections", "r", 3, N_SHA256, "shared"),
@@ -42,8 +61,11 @@ EMUL = [  # (label, field, B, L, b)
     ("gm17 G2 query", "q", 1, 4 * (1 << 15), "row"),
     ("12 limbs q381 G1 query", "q381", 1, 1 << 15, "row"), ("12 limbs q381 shared", "q381", 16, N_SHA256, "shared"),
 ]
-EREDUCE = [("walk snapshot", 1, SNAP), ("row sums", 1, ROWS), ("B=16 walk snapshot", 16, SNAP),
-           ("B=16 row sums", 16, ROWS)]
+EREDUCE = [  # (label, B, L): the flush slots at the reference's 1024 lanes and at the lanes
+    # groth16.walk_lanes takes (B = 1: 32768 lanes, P = 114688; B = 16: 16384 lanes, P = 98304 = 3n), the row sums
+    ("walk slots, 1024 lanes", 1, SNAP), ("walk slots, 32768 lanes", 1, 114688), ("row sums", 1, ROWS),
+    ("B=16 walk slots, 1024 lanes", 16, SNAP), ("B=16 row sums; walk slots, 16384 lanes", 16, ROWS),
+    ("corrections (3, 1)", 3, 1), ("corrections (1, 3)", 1, 3)]
 NTT = [  # (label, log2 n, batch, inverse)
     ("forward x3", 15, 3, False), ("inverse x3", 15, 3, True), ("inverse x1", 15, 1, True),
     ("B=16 forward x48", 15, 48, False), ("B=16 inverse x48", 15, 48, True), ("B=16 inverse x16", 15, 16, True),
@@ -56,6 +78,7 @@ def main():
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default="")
+    ap.add_argument("--matvec-only", action="store_true", help="only the matvec and h stage part")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -76,7 +99,7 @@ def main():
     print(f"{args.label}: {smi}; package {root}", flush=True)
     t0 = time.perf_counter()
     for name, (so, output) in cuda.build().items():
-        if name in ("zkt_field", "zkt_ntt"):
+        if name in ("zkt_field", "zkt_ntt", "zkt_mulacc"):
             for line in output.splitlines():
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     print("  " + line.strip())
@@ -108,6 +131,9 @@ def main():
             raise AssertionError(f"{rec} differs from its plain version")
 
     nrng = np.random.default_rng(7)
+    matvec_ab(cs, dev, emit, timed)
+    if args.matvec_only:
+        return
     for label, fname, B, L, kind in EMUL:
         m = moduli[fname]
         nl = cs.nl_of(m)
@@ -139,6 +165,135 @@ def main():
         del x
     if out:
         out.close()
+
+
+def matvec_ab(cs, dev, emit, timed):
+    """The matvec and h stage part (see the module docstring)."""
+    import inspect
+
+    import torch
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.ir.r1cs_device import build_mulacc_walk
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+    from zokrates_tpu_torch.schemes import groth16 as g
+
+    new_api = "walk" in inspect.signature(pf.mulacc_walk).parameters
+    for curve, load in (("bn128", cs.load_sha256), ("bls12_381", cs.load_sha256_bls12_381)):
+        r1cs = load()[1]
+        p = P.SCALAR_FIELDS[curve].p
+        n = 1 << (r1cs.num_constraints + r1cs.num_instance - 1).bit_length()
+        m = r1cs.num_variables
+        rdev = g._r1cs_device(r1cs, n, dev)
+        nrng = np.random.default_rng(11)
+        for B in (1, 16):
+            Z = cs.fr_elems((B, m), nrng, p).to(dev)
+            if new_api:
+                runs_ref = build_mulacc_walk(rdev).n_row_flush
+                for lanes in LANES:
+                    w = build_mulacc_walk(rdev, lanes)
+                    timed(lambda: pf.mulacc_walk(p, Z, w), lambda: pf.mulacc_walk_plain(p, Z, w),
+                          kernel="mulacc_walk", mode=f"{curve} B={B}", shape=[B, w.K, w.M], lanes=lanes,
+                          slots=w.pos.numel(), n_flush=w.n_flush,
+                          bound_ms=cs.bound(B * w.n_records,
+                                            cs.mulacc_bytes(w, B, m, min(w.n_row_flush, runs_ref)))[0],
+                          path=lanes == g.walk_lanes(B, w.n_records))
+                    ms = [cs.cuda_ms(lambda: g._matvec_walk(p, rdev, Z, lanes)) for _ in range(3)]
+                    emit(dict(kernel="_matvec_walk by lanes", mode=f"{curve} B={B}", lanes=lanes, ms=ms,
+                              ms_median=statistics.median(ms)))
+            else:
+                w = build_mulacc_walk(rdev)
+                zw = gather_walk(Z, w)
+                timed(lambda: pf.mulacc_walk(p, zw, w.coeff_walk, w.flags_walk),
+                      lambda: pf.mulacc_walk_plain(p, zw, w.coeff_walk, w.flags_walk),
+                      kernel="mulacc_walk", mode=f"{curve} B={B}", shape=[B, w.K, w.M], lanes=w.M)
+                del zw
+            Z_mont = Z
+            want = g._matvec_coo(p, rdev, Z_mont)
+            got = g._matvec_walk(p, rdev, Z_mont)
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(got, want))
+            del got, want
+            ms = [cs.cuda_ms(lambda: g._matvec_walk(p, rdev, Z_mont)) for _ in range(3)]
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                g._matvec_walk(p, rdev, Z_mont)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            emit(dict(kernel="_matvec_walk", mode=f"{curve} B={B}", equal=equal, ms=ms,
+                      ms_median=statistics.median(ms), wall_ms=statistics.median(walls),
+                      parts=matvec_parts(cs, p, rdev, Z_mont, g, pf, new_api)))
+            if not equal:
+                raise AssertionError(f"_matvec_walk {curve} B={B} differs from _matvec_coo")
+            if B == 16:
+                Zc = cs.fr_elems((B, m), nrng, p).to(dev)
+                g._h_stage(curve, rdev, Zc)  # warm: plans, constants, builds
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                g._h_stage(curve, rdev, Zc)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                peak = torch.cuda.max_memory_allocated() - base
+                emit(dict(kernel="_h_stage", mode=f"{curve} B=16", wall_ms=wall, peak_bytes=peak,
+                          base_bytes=base, ms_median=statistics.median(
+                              [cs.cuda_ms(lambda: g._h_stage(curve, rdev, Zc), reps=5) for _ in range(3)])))
+                del Zc
+            del Z
+
+
+def gather_walk(Z, w):
+    """A tree with the gathered-z mulacc_walk: zw[b, k, l, m] = Z[b,
+    cols[m*K + k], l], as its _matvec_walk gathers it."""
+    import torch
+
+    B, _, nl = Z.shape
+    bi = torch.arange(B, device=Z.device)
+    li = torch.arange(nl, device=Z.device)
+    return Z[bi[:, None, None, None], w.cols.view(w.M, w.K).T[None, :, None, :],
+             li[None, None, :, None]].contiguous()
+
+
+def matvec_parts(cs, p, rdev, Z, g, pf, new_api, reps=5):
+    """Median ms of each step of _matvec_walk over `reps` runs of its steps
+    replayed between CUDA events: chip_smoke.matvec_steps for a tree with
+    the new mulacc_walk, else the gathered-z pipeline's steps."""
+    import torch
+    from zokrates_tpu_torch.ir.r1cs_device import build_mulacc_walk
+
+    if new_api:
+        return cs.matvec_steps(p, rdev, Z, reps)
+    w = build_mulacc_walk(rdev)
+    B, _, nl = Z.shape
+    K = w.K
+    bi = torch.arange(B, device=Z.device)
+    li = torch.arange(nl, device=Z.device)
+    runs = []
+    for _ in range(reps):
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        evs[0].record()
+        zw = gather_walk(Z, w)
+        evs[1].record()
+        out = pf.mulacc_walk(p, zw, w.coeff_walk, w.flags_walk)
+        evs[2].record()
+        del zw
+        snap = out[bi[:, None, None], (w.pos % K)[None, :, None], li[None, None, :],
+                   (w.pos // K)[None, :, None]].contiguous()
+        evs[3].record()
+        del out
+        part = pf.ereduce_wide(p, snap)
+        evs[4].record()
+        sums = torch.zeros((B, w.n_rows + 1, nl), dtype=torch.int64, device=Z.device)
+        sums.index_add_(1, w.seg, part)
+        evs[5].record()
+        pf.ereduce_wide(p, sums[:, : w.n_rows].contiguous())
+        evs[6].record()
+        torch.cuda.synchronize()
+        runs.append([evs[i].elapsed_time(evs[i + 1]) for i in range(6)])
+    names = ("gather z", "mulacc", "gather snap", "ereduce snap", "index_add", "ereduce rows")
+    return {name: statistics.median(r[i] for r in runs) for i, name in enumerate(names)}
 
 
 if __name__ == "__main__":

@@ -30,7 +30,8 @@ the walk split into sub-chunks (many on few lanes, and every S through
 the C entry point) over the flag patterns of test_torch_walk_split, with a
 collision planted in one lane's second segment; the epilogue at lw = 1,
 2, 128 and 1024 over one and three windows;
-canonical field elements and lazy sums near 2^31 from seeded numpy; emul
+canonical field elements and lazy sums near 2^31 and 2^47 (ragged
+lengths, one-tile totals) from seeded numpy; emul
 at 8 and 12 limbs (BN254's r, BLS12-381's q) with b shared, full, one row
 and a strided a and b, rows that leave the last tile short, and the
 batched prove's shapes ((48, 2^15) shared and one row, (16, 2^15) full,
@@ -39,8 +40,10 @@ of a width it has no instantiation of; the NTT at 2^1, 2^2 and 2^5
 (blocks of many tiles, padding past the batch), 2^10 (one pass), 2^11,
 the prove's 2^15 and 2^16 (two) and 2^21 (three), batches of 1, 2, 3, 16
 and 48; the epilogue also at the shared-bucket h MSM's shape
-(one window of 1024 lanes); the matvec walk with runs that end at row
-changes and at lane ends; the point kernels with P at infinity, P == Q,
+(one window of 1024 lanes); the matvec walk on toy and sha256-sized
+random plans at 1024 to 32768 lanes (runs that end at row changes and
+at lane ends, lanes of padding), B = 1, 3 and 16, over BN254's and
+BLS12-381's r, and groth16._matvec_walk against the COO matvec; the point kernels with P at infinity, P == Q,
 P == -Q, digits 0 and >= n_buckets and buckets hit several times.
 Tolerance: bit equality of every output limb.
 """
@@ -532,19 +535,42 @@ def test_emul_entry_point_refuses_unknown_widths(dev):
     torch.cuda.synchronize()
 
 
-def test_ereduce_wide_kernel_equals_plain(dev):
+@pytest.mark.parametrize("B,L,top", [(2, 777, 1 << 31), (3, 1, 1 << 31), (1, 3, 1 << 31), (2, 777, 1 << 47),
+                                     (1, 128, 1 << 31), (1, 129, 1 << 31), (16, 90112, 1 << 31),
+                                     (16, 98304, 1 << 31), (16, 95233, 1 << 31)])
+def test_ereduce_wide_kernel_equals_plain(dev, B, L, top):
+    """Ragged L (777 = 6 tiles and 9 elements, 95233), the corrections'
+    shapes and 128 elements (one thread an element, ereduce_lane_kernel),
+    129 (the tile walk's two tiles, the last of one element), the walk
+    matvec's shapes at B = 16, sums up to 2^31 and 2^47, the largest and 0
+    in every column of some elements."""
     from zokrates_tpu_torch.kernels import pallas_field as pf
 
     rng = np.random.default_rng(6)
-    t = torch.as_tensor(rng.integers((1 << 31) - (1 << 20), 1 << 31, (2, 777, 16), dtype=np.int64))
-    t[0, :5] = (1 << 31) - 1
-    t[1, :5] = 0
+    t = torch.as_tensor(rng.integers(top - (1 << 20), top, (B, L, 16), dtype=np.int64))
+    t[0, :5] = top - 1
+    t[-1, -1] = 0
     t = t.to(dev)
     before = pf.LAUNCHES["ereduce_wide"]
     out = pf.ereduce_wide(R_MOD, t)
     torch.cuda.synchronize()
     assert pf.LAUNCHES["ereduce_wide"] == before + 1
     assert torch.equal(out, pf.ereduce_wide_plain(R_MOD, t))
+
+
+def test_ereduce_entry_point_refuses_unknown_widths(dev):
+    """zkt_ereduce_wide launches nothing for a limb count it has no
+    instantiation of (12)."""
+    from zokrates_tpu_torch.kernels import cuda
+
+    lib = cuda.load()
+    _, pl, one, n0, _ = cuda.field_params(R_MOD, None, cuda.NL32_FIELD)
+    buf = torch.zeros(1 << 12, dtype=torch.int64, device=dev)
+    p = buf.data_ptr()
+    rc = lib.zkt_ereduce_wide(p, p, 4, 12, pl, pl, one, n0, torch.cuda.current_stream(dev).cuda_stream)
+    with pytest.raises(RuntimeError, match="ereduce_wide launch failed"):
+        cuda.check(rc, "ereduce_wide")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("logn,batch", [(1, 1), (2, 3), (5, 2), (10, 1), (10, 3), (11, 1), (15, 3), (15, 16),
@@ -637,21 +663,79 @@ def test_new_wrappers_refuse_mixed_devices(dev):
         pf.emul(R_MOD, a, _elems((4,), 11))
 
 
-@pytest.mark.parametrize("B,K,M", [(1, 12, 1024), (3, 9, 200)])
-def test_mulacc_walk_kernel_equals_plain(dev, B, K, M):
+def _walk_dev(dev, n, m, L, seed, p=R_MOD):
+    """An R1CSDevice on the card over a random row-sorted stream of L
+    records on 3n rows and m variables (its three matrix blocks)."""
+    from zokrates_tpu_torch.ir import r1cs_device as rd
+
+    rng = np.random.default_rng(seed)
+    rows = np.sort(rng.integers(0, 3 * n, size=L)).astype(np.int64)
+    cols = rng.integers(0, m, size=L).astype(np.int64)
+    coeff = _elems((L,), seed + 1, p).numpy()
+    blocks = [(rows >= k * n) & (rows < (k + 1) * n) for k in range(3)]
+    coo = [rd.COOMatrix(torch.as_tensor(rows[b] - k * n, device=dev), torch.as_tensor(cols[b], device=dev),
+                        torch.as_tensor(coeff[b], device=dev), n, rows_np=rows[b] - k * n, cols_np=cols[b],
+                        coeff_np=coeff[b])
+           for k, b in enumerate(blocks)]
+    return rd.R1CSDevice("bn128" if p == R_MOD else "bls12_381", n, 1, m - 1, *coo)
+
+
+R381 = g1_group("bls12_381").r
+
+
+@pytest.mark.parametrize("B", [1, 3, 16])
+@pytest.mark.parametrize("size,lanes", [("toy", 1024), ("toy", 2048), ("sha256", 1024), ("sha256", 4096),
+                                        ("sha256", 32768)])
+@pytest.mark.parametrize("p", [R_MOD, R381], ids=["bn128", "bls12_381"])
+def test_mulacc_walk_kernel_equals_plain(dev, B, size, lanes, p):
+    """The toy's 3000 records over 64 rows a block and 40 variables, and
+    sha256's sizes (405,504 records over 3 x 2^15 rows, 27,281 variables:
+    no padding at 1024 lanes, lanes ending in padding at 32768), at
+    several lane counts, on BN254's and BLS12-381's r; B = 1 (a proof a
+    block), 3 (two a block, the second block's second proof absent) and
+    16 (four a block)."""
     from zokrates_tpu_torch.kernels import pallas_field as pf
 
-    rng = np.random.default_rng(12)
-    z = _elems((B, K, M), 13).permute(0, 1, 3, 2).contiguous().to(dev)
-    coeff = _elems((K, M), 14).permute(0, 2, 1).contiguous().to(dev)
-    flags = rng.random((K, M)) < 0.3
-    flags[-1] = True  # every lane flushes at its end
-    flags = torch.as_tensor(flags.astype(np.int32)).to(dev)
+    n, m, L = (64, 40, 3000) if size == "toy" else (1 << 15, 27281, 405504)
+    from zokrates_tpu_torch.ir.r1cs_device import build_mulacc_walk
+
+    w = build_mulacc_walk(_walk_dev(dev, n, m, L, 30 + lanes, p), lanes)
+    z = _elems((B, m), 31, p).to(dev)
     before = pf.LAUNCHES["mulacc_walk"]
-    out = pf.mulacc_walk(R_MOD, z, coeff, flags)
+    out = pf.mulacc_walk(p, z, w)
     torch.cuda.synchronize()
-    assert pf.LAUNCHES["mulacc_walk"] == before + 1
-    assert torch.equal(out, pf.mulacc_walk_plain(R_MOD, z, coeff, flags))
+    assert pf.LAUNCHES["mulacc_walk"] == before + 2  # the pack, then the walk
+    assert torch.equal(out, pf.mulacc_walk_plain(p, z, w))
+    assert not out[:, w.n_flush:].any()
+
+
+def test_mulacc_entry_point_refuses_bad_plans(dev):
+    """zkt_mulacc_walk launches nothing for lanes that are not a multiple
+    of its block, nor for K above 2^16 records a lane."""
+    from zokrates_tpu_torch.kernels import cuda
+
+    lib = cuda.load()
+    _, pl, one, n0, _ = cuda.field_params(R_MOD, None, cuda.NL32_FIELD)
+    buf = torch.zeros(1 << 12, dtype=torch.int64, device=dev)
+    p = buf.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for K, M in ((4, 200), ((1 << 16) + 1, 128)):
+        rc = lib.zkt_mulacc_walk(p, p, 4, p, p, p, p, p, 1, K, M, 10, 1, 8, pl, one, n0, stream)
+        with pytest.raises(RuntimeError, match="mulacc_walk launch failed"):
+            cuda.check(rc, "mulacc_walk")
+    torch.cuda.synchronize()
+
+
+def test_walk_matvec_on_card(dev):
+    """groth16._matvec_walk on the card at the toy's shapes, B = 2, at the
+    lanes walk_lanes picks and at 4096, equals _matvec_coo."""
+    from zokrates_tpu_torch.schemes import groth16 as g
+
+    rdev = _walk_dev(dev, 64, 40, 3000, 33)
+    z = _elems((2, 40), 35).to(dev)
+    want = g._matvec_coo(R_MOD, rdev, z)
+    for lanes in (None, 4096):
+        assert torch.equal(g._matvec_walk(R_MOD, rdev, z, lanes), want)
 
 
 def test_shared_bucket_msm_on_card(dev):

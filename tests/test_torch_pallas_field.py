@@ -15,7 +15,8 @@ their plain versions, against the JAX package's field ops
     JAX field product; its shared-memory swizzle sends a quarter warp's
     16-byte reads to eight distinct bank groups;
   * ereduce_wide on lazy column sums up to 2^31 (the reference's u32
-    headroom);
+    headroom), and its CUDA kernel's tile walk (emul's over one operand)
+    replayed on the CPU: every element once, short last tiles;
   * the wrappers' checks of dtype, shape, layout and device, and that CPU
     calls count no launch.
 
@@ -203,6 +204,29 @@ def test_ereduce_wide_matches_reference(jf, top):
     want = np.asarray(jax.jit(jf.reduce_wide_)(jnp.asarray(t.astype(np.uint32))))
     got = pf.ereduce_wide(P, torch.as_tensor(t))
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+@pytest.mark.parametrize("B,L,grid", [(2, 777, 5), (1, 129, 1), (3, 67, 1), (1, 256, 2), (16, 300, 64)])
+def test_ereduce_tile_walk_replay(jf, B, L, grid):
+    """ereduce_kernel's tile walk (emul's over one operand, the (B, L)
+    sums as one row of B*L elements, word pair c of an element in emul's
+    chunk slot c at 8 limbs), replayed: every element is stored once, a
+    short last tile included ((2, 777): 12 full tiles and one of 18; (1,
+    129): one and one of 1), and the reductions of the words the walk
+    reads equal the JAX reduce_wide. The swizzle's bank spread is
+    test_emul_swizzle_spreads_banks at n32 = 8. (Totals of one tile or
+    less take ereduce_lane_kernel, one thread an element.)"""
+    rng = np.random.default_rng(50 + L)
+    t = rng.integers(0, 1 << 31, (B, L, NL), dtype=np.int64)
+    total = B * L
+    out_off, t_off, _ = _emul_tile_walk(1, total, grid, NL // 2, 0, 0, 0)
+    assert np.array_equal(np.sort(out_off), np.arange(total) * NL)  # every element stored once
+    words = np.arange(NL)
+    flat = t.reshape(-1)
+    got = np.empty(total * NL, np.int64)
+    got[out_off[:, None] + words] = pf.ereduce_wide_plain(P, torch.as_tensor(flat[t_off[:, None] + words])).numpy()
+    want = np.asarray(jax.jit(jf.reduce_wide_)(jnp.asarray(t.astype(np.uint32))))
+    np.testing.assert_array_equal(got.reshape(B, L, NL), want.astype(np.int64))
 
 
 def test_wrappers_reject_bad_arguments():

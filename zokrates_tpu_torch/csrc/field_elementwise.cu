@@ -17,26 +17,32 @@
 // 7x longer than the multiplies (4.5x at N = 12); ereduce_wide moves 256 B
 // per element for two products. A narrower public layout is a later change.
 //
-// emul's design, for a byte-bound kernel: a block of kEmulThreads threads
-// walks tiles of kEmulTile consecutive elements of one batch row, tile
-// blockIdx.x, then every gridDim.x-th after it (the grid is as many blocks
-// as fit on the card at once, so every block stays resident). Each tile's
-// operands travel as 16-byte cp.async copies, consecutive threads on
-// consecutive 16 B of device memory, into shared memory; two buffers per
-// block, so the next tile's copy is in flight while the current one
-// multiplies. In shared memory 16 bytes hold one 32-bit limb (its two
-// int64 words); chunk c of tile element e sits at e*N + (c ^ swz(e)), so
-// the threads of a quarter warp, each reading chunk c of its own element,
-// hit eight distinct 16-byte bank groups (swz: e mod 8 at N = 8, (e/2) mod
-// 4 at N = 12, both permuting c within an aligned group of 8 or 4 chunks).
-// Each thread multiplies kEmulPerThread elements with the inlined
-// mont_mul, their chains independent, and writes the products over a's
-// chunks, from where the tile leaves as 16-byte stores, coalesced like the
-// loads. b takes two forms: rows in a tile of its own (shared by the batch
+// Both kernels run one tile walk (tile_walk), a byte-bound design: a block
+// of kEmulThreads threads walks tiles of kEmulTile consecutive elements of
+// one batch row, tile blockIdx.x, then every gridDim.x-th after it (the
+// grid is as many blocks as fit on the card at once, so every block stays
+// resident). Each tile's operands travel as 16-byte cp.async copies,
+// consecutive threads on consecutive 16 B of device memory, into shared
+// memory; two buffers per block, so the next tile's copy is in flight
+// while the current one computes. In shared memory 16 bytes hold one
+// 32-bit limb (its two int64 words); chunk c of tile element e sits at e*N
+// + (c ^ swz(e)), so the threads of a quarter warp, each reading chunk c
+// of its own element, hit eight distinct 16-byte bank groups (swz: e mod 8
+// at N = 8, (e/2) mod 4 at N = 12, both permuting c within an aligned
+// group of 8 or 4 chunks). Each thread computes kEmulPerThread elements,
+// their chains independent, with the inlined mont_mul, and writes the
+// results over the input's chunks, from where the tile leaves as 16-byte
+// stores, coalesced like the loads; the last tile of a row may be short.
+//
+// emul: b takes two forms: rows in a tile of its own (shared by the batch
 // with a batch stride of 0, or one row per batch element), or one element
 // per batch row (row stride 0: n^-1, Z(g)^-1, R^2), read once a tile into
 // registers. a takes any batch stride (a[:, i] of a larger tensor is read
-// in place); the last tile of a row may be short.
+// in place).
+//
+// ereduce: one operand, the lazy sums as one row (see EreduceTile for
+// its words in shared memory); totals of up to one tile take
+// ereduce_lane_kernel, one thread an element, instead.
 //
 // Interface: plain C functions (ctypes), launched on the caller's stream;
 // each returns a CUDA error code: cudaGetLastError() right after its
@@ -50,9 +56,7 @@ using namespace zkt;
 
 namespace {
 
-constexpr int kThreads = 256;     // ereduce_kernel
-constexpr int kWords = 2 * NL;    // int64 words per 8-limb element
-constexpr int kEmulThreads = 64;  // emul_kernel's block
+constexpr int kEmulThreads = 64;  // a block of the tile walk
 constexpr int kEmulPerThread = 2;
 constexpr int kEmulTile = kEmulThreads * kEmulPerThread;  // elements a tile
 
@@ -104,54 +108,58 @@ __device__ __forceinline__ void issue_tile(longlong2* buf, const int64_t* a, con
   }
 }
 
-template <int N, bool B_ROW>
-__global__ void __launch_bounds__(kEmulThreads) emul_kernel(const int64_t* __restrict__ a,
-                                                             const int64_t* __restrict__ b,
-                                                             int64_t* __restrict__ out, long long L,
-                                                             long long tiles_per_row, long long ntiles,
-                                                             long long a_bs, long long b_bs,
-                                                             FieldParams<N> P) {
-  extern __shared__ __align__(16) longlong2 emul_smem[];
-  constexpr int kChunks = kEmulTile * N;        // 16-byte chunks of one operand's tile
-  constexpr int kBuf = (B_ROW ? 1 : 2) * kChunks;  // one buffer: a's tile, then b's
+// The tile walk both kernels run (see the top of the file). Op is one
+// kernel's part of it:
+//   kOperands         16-byte chunk tiles a tile copies (1 or 2);
+//   kOneRow           the operand is one row: a tile's row is 0, not a
+//                     64-bit division of the tile by the tiles of a row;
+//   issue(buf, bi, r0, cnt)   starts the copies of the cnt elements from
+//                     element r0 of batch row bi into buffer buf;
+//   compute(ta, bi, x)  the results of this thread's kEmulPerThread
+//                     elements (threadIdx.x + k*kEmulThreads) of the tile
+//                     in buffer ta, into x.
+// The results go back over the tile's first operand as 16-bit limbs and
+// leave from there; slots past cnt hold stale bytes, and their results are
+// computed and never stored.
+template <class Op>
+__device__ __forceinline__ long long tile_row(long long tile, long long tiles_per_row) {
+  if constexpr (Op::kOneRow)
+    return 0;
+  else
+    return tile / tiles_per_row;
+}
+
+template <int N, class Op>
+__device__ __forceinline__ void tile_walk(const Op& op, int64_t* __restrict__ out, long long L,
+                                          long long tiles_per_row, long long ntiles) {
+  extern __shared__ __align__(16) longlong2 tile_smem[];
+  constexpr int kBuf = Op::kOperands * kEmulTile * N;  // one buffer: the operands' tiles
   long long tile = blockIdx.x;
   if (tile >= ntiles) return;
   {
-    const long long bi = tile / tiles_per_row;
+    const long long bi = tile_row<Op>(tile, tiles_per_row);
     const long long r0 = (tile - bi * tiles_per_row) * kEmulTile;
-    issue_tile<N, B_ROW>(emul_smem, a, b, bi, r0, (int)min((long long)kEmulTile, L - r0), a_bs, b_bs);
+    op.issue(tile_smem, bi, r0, (int)min((long long)kEmulTile, L - r0));
   }
   cp_async_commit();
   int stage = 0;
   for (; tile < ntiles; tile += gridDim.x) {
     const long long next = tile + gridDim.x;
     if (next < ntiles) {
-      const long long bi = next / tiles_per_row;
+      const long long bi = tile_row<Op>(next, tiles_per_row);
       const long long r0 = (next - bi * tiles_per_row) * kEmulTile;
-      issue_tile<N, B_ROW>(emul_smem + (stage ^ 1) * kBuf, a, b, bi, r0,
-                           (int)min((long long)kEmulTile, L - r0), a_bs, b_bs);
+      op.issue(tile_smem + (stage ^ 1) * kBuf, bi, r0, (int)min((long long)kEmulTile, L - r0));
     }
     cp_async_commit();
     cp_async_wait_one();  // this tile's copies (all but the group just committed)
     __syncthreads();
 
-    const long long bi = tile / tiles_per_row;
+    const long long bi = tile_row<Op>(tile, tiles_per_row);
     const long long r0 = (tile - bi * tiles_per_row) * kEmulTile;
     const int cnt = (int)min((long long)kEmulTile, L - r0);
-    longlong2* ta = emul_smem + stage * kBuf;
-    // slots past cnt hold stale bytes: their products are computed and never stored
-    Fq<N> x[kEmulPerThread], y[kEmulPerThread];
-#pragma unroll
-    for (int k = 0; k < kEmulPerThread; ++k) {
-      const int e = threadIdx.x + k * kEmulThreads;
-      x[k] = load_slots<N>(ta, e);
-      if constexpr (B_ROW)
-        y[k] = load_wide<N>(b + bi * b_bs);
-      else
-        y[k] = load_slots<N>(ta + kChunks, e);
-    }
-#pragma unroll
-    for (int k = 0; k < kEmulPerThread; ++k) x[k] = mont_mul(x[k], y[k], P);
+    longlong2* ta = tile_smem + stage * kBuf;
+    Fq<N> x[kEmulPerThread];
+    op.compute(ta, bi, x);
 #pragma unroll
     for (int k = 0; k < kEmulPerThread; ++k) {
       const int e = threadIdx.x + k * kEmulThreads;
@@ -171,6 +179,147 @@ __global__ void __launch_bounds__(kEmulThreads) emul_kernel(const int64_t* __res
 }
 
 template <int N, bool B_ROW>
+struct EmulTile {
+  static constexpr int kOperands = B_ROW ? 1 : 2;  // a's tile, then b's
+  static constexpr bool kOneRow = false;
+  const int64_t* a;
+  const int64_t* b;
+  long long a_bs, b_bs;
+  FieldParams<N> P;
+
+  __device__ __forceinline__ void issue(longlong2* buf, long long bi, long long r0, int cnt) const {
+    issue_tile<N, B_ROW>(buf, a, b, bi, r0, cnt, a_bs, b_bs);
+  }
+
+  __device__ __forceinline__ void compute(const longlong2* ta, long long bi, Fq<N>* x) const {
+    Fq<N> y[kEmulPerThread];
+#pragma unroll
+    for (int k = 0; k < kEmulPerThread; ++k) {
+      const int e = threadIdx.x + k * kEmulThreads;
+      x[k] = load_slots<N>(ta, e);
+      if constexpr (B_ROW)
+        y[k] = load_wide<N>(b + bi * b_bs);
+      else
+        y[k] = load_slots<N>(ta + kEmulTile * N, e);
+    }
+#pragma unroll
+    for (int k = 0; k < kEmulPerThread; ++k) x[k] = mont_mul(x[k], y[k], P);
+  }
+};
+
+template <int N, bool B_ROW>
+__global__ void __launch_bounds__(kEmulThreads) emul_kernel(const int64_t* __restrict__ a,
+                                                             const int64_t* __restrict__ b,
+                                                             int64_t* __restrict__ out, long long L,
+                                                             long long tiles_per_row, long long ntiles,
+                                                             long long a_bs, long long b_bs,
+                                                             FieldParams<N> P) {
+  tile_walk<N>(EmulTile<N, B_ROW>{a, b, a_bs, b_bs, P}, out, L, tiles_per_row, ntiles);
+}
+
+// ereduce's carry sweep over an element's 2N column sums, word pair
+// (2i, 2i + 1) = word(i): the 16-bit limbs into res, the carry out
+// returned. Nonnegative words < 2^63 never overflow the 64-bit carry.
+template <int N, class Words>
+__device__ __forceinline__ uint64_t carry_sweep(Words word, Fq<N>& res) {
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const longlong2 w = word(i);
+    c += (uint64_t)w.x;
+    const uint32_t lo = (uint32_t)c & 0xFFFFu;
+    c >>= 16;
+    c += (uint64_t)w.y;
+    const uint32_t hi = (uint32_t)c & 0xFFFFu;
+    c >>= 16;
+    res.v[i] = lo | (hi << 16);
+  }
+  return c;
+}
+
+// res + carry * 2^(32N) mod p, canonical: res * (R mod p) * R^-1 = res mod
+// p and carry * (R^2 mod p) * R^-1 = carry * R mod p, each a Montgomery
+// product.
+template <int N>
+__device__ __forceinline__ Fq<N> fold_carry(const Fq<N>& res, uint64_t carry, const Fq<N>& r2,
+                                            const FieldParams<N>& P) {
+  Fq<N> emb;
+  set_zero(emb);
+  emb.v[0] = (uint32_t)carry;
+  emb.v[1] = (uint32_t)(carry >> 32);
+  return add(mont_mul(res, P.one, P), mont_mul(emb, r2, P), P);
+}
+
+// ereduce on the tile walk, over one operand: the (total,) lazy sums as
+// one row. An element's 2N words are full column sums (< 2^47), not 16-bit
+// limbs, so they stay 64-bit in shared memory: chunk c of element e is its
+// word pair (2c, 2c + 1), at the same chunk_slot as emul's limb c, and the
+// carry sweep reads it as one 16-byte word pair. Per quarter warp (the
+// unit of a 16-byte shared access) that is emul's access, 8 consecutive
+// elements' chunk c, on 8 distinct bank groups.
+template <int N>
+struct EreduceTile {
+  static constexpr int kOperands = 1;
+  static constexpr bool kOneRow = true;
+  const int64_t* t;
+  Fq<N> r2;
+  FieldParams<N> P;
+
+  __device__ __forceinline__ void issue(longlong2* buf, long long, long long r0, int cnt) const {
+    issue_tile<N, true>(buf, t, nullptr, 0, r0, cnt, 0, 0);
+  }
+
+  __device__ __forceinline__ void compute(const longlong2* ta, long long, Fq<N>* x) const {
+    uint64_t carry[kEmulPerThread];
+#pragma unroll
+    for (int k = 0; k < kEmulPerThread; ++k) {
+      const int e = threadIdx.x + k * kEmulThreads;
+      carry[k] = carry_sweep<N>([&](int i) { return ta[chunk_slot<N>(e, i)]; }, x[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kEmulPerThread; ++k) x[k] = fold_carry(x[k], carry[k], r2, P);
+  }
+};
+
+template <int N>
+__global__ void __launch_bounds__(kEmulThreads) ereduce_kernel(const int64_t* __restrict__ t,
+                                                                int64_t* __restrict__ out, long long total,
+                                                                long long ntiles, Fq<N> r2, FieldParams<N> P) {
+  tile_walk<N>(EreduceTile<N>{t, r2, P}, out, total, ntiles, ntiles);
+}
+
+// The few-element shapes (the corrections' (3, 1) and (1, 3)): one thread
+// an element, its words read straight from device memory. Launch latency
+// bounds them, and the tile walk's copy through shared memory made them
+// slower (PERF.md).
+constexpr int kEreduceLaneMax = kEmulTile;  // totals up to one tile
+
+template <int N>
+__global__ void __launch_bounds__(kEreduceLaneMax) ereduce_lane_kernel(const int64_t* __restrict__ t,
+                                                                       int64_t* __restrict__ out, long long total,
+                                                                       Fq<N> r2, FieldParams<N> P) {
+  const long long i = threadIdx.x;
+  if (i >= total) return;
+  const longlong2* src = reinterpret_cast<const longlong2*>(t + i * 2 * N);
+  Fq<N> res;
+  const uint64_t carry = carry_sweep<N>([&](int k) { return __ldg(src + k); }, res);
+  store_wide(out + i * 2 * N, fold_carry(res, carry, r2, P));
+}
+
+// Blocks of `kernel` (kEmulThreads threads, smem bytes of dynamic shared
+// memory) resident on the card at once: the grid of a persistent walk.
+template <class Kernel>
+cudaError_t resident_blocks(Kernel kernel, size_t smem, long long* blocks) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kEmulThreads, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) *blocks = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  return e;
+}
+
+template <int N, bool B_ROW>
 int launch_emul(const int64_t* a, const int64_t* b, int64_t* out, long long B, long long L,
                 long long a_bs, long long b_bs, const uint32_t* p, const uint32_t* one, uint32_t n0,
                 cudaStream_t stream) {
@@ -178,15 +327,8 @@ int launch_emul(const int64_t* a, const int64_t* b, int64_t* out, long long B, l
   // blocks resident on the card at once, found on the first launch
   static long long max_grid = 0;
   if (max_grid == 0) {
-    cudaError_t e = cudaFuncSetAttribute(emul_kernel<N, B_ROW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    int per_sm = 0, dev = 0, sms = 0;
-    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, emul_kernel<N, B_ROW>,
-                                                                            kEmulThreads, smem);
-    if (e == cudaSuccess) e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const cudaError_t e = resident_blocks(emul_kernel<N, B_ROW>, smem, &max_grid);
     if (e != cudaSuccess) return (int)e;
-    max_grid = (long long)(per_sm > 0 ? per_sm : 1) * sms;
   }
   const FieldParams<N> P = make_params<N>(p, one, n0, 0);
   const long long tiles_per_row = (L + kEmulTile - 1) / kEmulTile;
@@ -197,35 +339,27 @@ int launch_emul(const int64_t* a, const int64_t* b, int64_t* out, long long B, l
   return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(kThreads) ereduce_kernel(const int64_t* __restrict__ t,
-                                                            int64_t* __restrict__ out,
-                                                            long long total, Fq8 r2, FieldParams8 P) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const longlong2* src = reinterpret_cast<const longlong2*>(t + i * kWords);
-  // carry sweep: nonnegative words < 2^63 never overflow the 64-bit carry
-  uint64_t c = 0;
-  Fq8 res;
-#pragma unroll
-  for (int k = 0; k < NL; ++k) {
-    const longlong2 w = __ldg(src + k);
-    c += (uint64_t)w.x;
-    const uint32_t lo = (uint32_t)c & 0xFFFFu;
-    c >>= 16;
-    c += (uint64_t)w.y;
-    const uint32_t hi = (uint32_t)c & 0xFFFFu;
-    c >>= 16;
-    res.v[k] = lo | (hi << 16);
+template <int N>
+int launch_ereduce(const int64_t* t, int64_t* out, long long total, const uint32_t* r2, const uint32_t* p,
+                   const uint32_t* one, uint32_t n0, cudaStream_t stream) {
+  constexpr size_t smem = 2 * kEmulTile * N * sizeof(longlong2);
+  static long long max_grid = 0;
+  if (max_grid == 0 && total > kEreduceLaneMax) {
+    const cudaError_t e = resident_blocks(ereduce_kernel<N>, smem, &max_grid);
+    if (e != cudaSuccess) return (int)e;
   }
-  Fq8 emb;
-  set_zero(emb);
-  emb.v[0] = (uint32_t)c;
-  emb.v[1] = (uint32_t)(c >> 32);
-  // res * (R mod p) * R^-1 = res mod p; carry * (R^2 mod p) * R^-1 = carry * 2^256 mod p
-  store_wide(out + i * kWords, add(mul(res, P.one, P), mul(emb, r2, P), P));
+  const FieldParams<N> P = make_params<N>(p, one, n0, 0);
+  Fq<N> r2v;
+  for (int i = 0; i < N; ++i) r2v.v[i] = r2[i];
+  if (total <= kEreduceLaneMax) {
+    ereduce_lane_kernel<N><<<1, kEreduceLaneMax, 0, stream>>>(t, out, total, r2v, P);
+    return (int)cudaGetLastError();
+  }
+  const long long ntiles = (total + kEmulTile - 1) / kEmulTile;
+  const unsigned grid = (unsigned)(ntiles < max_grid ? ntiles : max_grid);
+  ereduce_kernel<N><<<grid, kEmulThreads, smem, stream>>>(t, out, total, ntiles, r2v, P);
+  return (int)cudaGetLastError();
 }
-
-unsigned grid_of(long long total) { return (unsigned)((total + kThreads - 1) / kThreads); }
 
 }  // namespace
 
@@ -253,14 +387,12 @@ int zkt_emul(const int64_t* a, const int64_t* b, int64_t* out, long long B, long
   return (int)cudaErrorInvalidValue;
 }
 
-// t, out: `total` packed elements; r2 = R^2 mod p as NL 32-bit limbs.
-int zkt_ereduce_wide(const int64_t* t, int64_t* out, long long total, const uint32_t* r2,
+// t, out: `total` packed elements of n32 32-bit limbs (2*n32 int64 words
+// each, 16-byte aligned); r2 = R^2 mod p as n32 32-bit limbs. n32 is 8.
+int zkt_ereduce_wide(const int64_t* t, int64_t* out, long long total, int n32, const uint32_t* r2,
                      const uint32_t* p, const uint32_t* one, uint32_t n0, void* stream) {
-  const FieldParams8 P = make_params<NL>(p, one, n0, 0);
-  Fq8 r2v;
-  for (int i = 0; i < NL; ++i) r2v.v[i] = r2[i];
-  ereduce_kernel<<<grid_of(total), kThreads, 0, (cudaStream_t)stream>>>(t, out, total, r2v, P);
-  return (int)cudaGetLastError();
+  if (n32 == 8) return launch_ereduce<8>(t, out, total, r2, p, one, n0, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

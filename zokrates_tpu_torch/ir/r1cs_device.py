@@ -9,7 +9,8 @@ prover's matvec (schemes/groth16._h_stage) takes one of two forms:
     one reduce_wide per output row;
   * the mulacc walk (a CUDA device): the layout of build_mulacc_walk,
     walked by the mulacc_walk kernel (kernels/pallas_field.py), which
-    multiplies and accumulates each row's run of records in one pass.
+    gathers z, multiplies and accumulates each row's run of records in
+    one pass and writes each run's lazy sum to its flush slot.
 
 The instance-binding rows ark appends (A[nc + j] = z_j, binding public
 inputs into the A polynomial) are ordinary COO entries.
@@ -128,40 +129,54 @@ class MulaccWalk:
     B, C COO entries with rows offset into disjoint blocks of 3n segments;
     lane m of M = S*128 owns records [m*K, (m+1)*K).
 
-    The arrays equal the reference's; coeff_walk and flags_walk merge its
-    trailing (S, 128) lane axes into one axis of M lanes (lane-minor, as
-    the kernel loads them) and flags_walk its (T, R) axes into K."""
+    At M = 1024 lanes (S = 8) cols, coeff_walk, flags_walk, pos and seg
+    equal the reference's arrays; coeff_walk and flags_walk merge its
+    trailing (S, 128) lane axes into one axis of M lanes (lane-minor) and
+    flags_walk its (T, R) axes into K. The kernel reads cols_walk,
+    coeff_packed, flags_walk and lane_base: flush i of the stream (record
+    pos[i]) is lane m's flush i - lane_base[m]."""
 
-    cols: torch.Tensor        # (Lp,) int64 gather indices into z
-    coeff_walk: torch.Tensor  # (K, nl, M) int64 Montgomery coefficients
-    flags_walk: torch.Tensor  # (K, M) int32 flush flags
-    pos: torch.Tensor         # (P,) int64 flush positions in record space
-    seg: torch.Tensor         # (P,) int64 segment (row) ids, sorted
+    cols: torch.Tensor          # (Lp,) int64 gather indices into z
+    coeff_walk: torch.Tensor    # (K, nl, M) int64 Montgomery coefficients
+    flags_walk: torch.Tensor    # (K, M) int32 flush flags
+    pos: torch.Tensor           # (P,) int64 flush positions in record space
+    seg: torch.Tensor           # (P,) int64 segment (row) ids, sorted
     K: int
     R: int
     S: int
-    n_rows: int               # 3n
+    n_rows: int                 # 3n
+    cols_walk: torch.Tensor     # (K, M) int32: cols, lane-minor
+    coeff_packed: torch.Tensor  # (K, nl/2, M) int32: coeff_walk as 32-bit limbs
+    lane_base: torch.Tensor     # (M,) int32: slot of each lane's first flush
+    n_records: int              # L, the records before the padding
+    n_flush: int                # flushes before pos's padding (its pad slots hold 0)
+    n_row_flush: int            # flushes of the 3n rows: the slots before seg reaches 3n
+    n_cols: int                 # variables the walk reads: the largest column + 1
 
     @property
     def M(self) -> int:
         return self.S * 128
 
 
-_MULACC_R = 4
-_MULACC_S = 8  # M = 1024 lanes
+MULACC_R = 4
+REFERENCE_LANES = 1024  # the reference's M = S*128 lanes, S = 8
 
 
-def build_mulacc_walk(dev: "R1CSDevice") -> MulaccWalk:
-    """Build (and cache on dev) the walk plan from the numpy COO sidecars,
-    on dev's device.
+def build_mulacc_walk(dev: "R1CSDevice", lanes: int = REFERENCE_LANES) -> MulaccWalk:
+    """Build (and cache on dev, per lane count) the walk plan from the
+    numpy COO sidecars, on dev's device. `lanes`: a power of two >= 1024
+    (1024 is the reference's layout); K is ceil(L / lanes) rounded up to a
+    multiple of R.
 
     Raises ValueError when a lane's K records could overflow the lazy
     sums: a flushed run sums at most K 16-bit-limb products per limb, and
     ereduce_wide takes sums below 2^31, so K is bounded by MAX_ROW_TERMS as
     rows are on the COO path. (The reference asserts no such bound.)"""
-    cached = getattr(dev, "_mulacc_walk", None)
-    if cached is not None:
-        return cached
+    if lanes < REFERENCE_LANES or lanes & (lanes - 1):
+        raise ValueError(f"mulacc walk: {lanes} lanes, expected a power of two >= {REFERENCE_LANES}")
+    cache = dev.__dict__.setdefault("_mulacc_walks", {})
+    if lanes in cache:
+        return cache[lanes]
     n = dev.n
     nl = dev.A.coeff_np.shape[1]
     rows = np.concatenate(
@@ -170,8 +185,8 @@ def build_mulacc_walk(dev: "R1CSDevice") -> MulaccWalk:
     cols = np.concatenate([dev.A.cols_np, dev.B.cols_np, dev.C.cols_np])
     coeff = np.concatenate([dev.A.coeff_np, dev.B.coeff_np, dev.C.coeff_np])
     L = rows.shape[0]
-    M = _MULACC_S * 128
-    R = _MULACC_R
+    M = lanes
+    R = MULACC_R
     K = -(-L // M)
     K = -(-K // R) * R
     if K > MAX_ROW_TERMS:
@@ -194,6 +209,10 @@ def build_mulacc_walk(dev: "R1CSDevice") -> MulaccWalk:
 
     pos = np.nonzero(flush)[0]
     seg = rows_pad[pos]  # ascending (rows sorted, lanes contiguous)
+    # pos ascends and lane m's records are [m*K, (m+1)*K): its flushes are
+    # consecutive slots from the first flush at or after m*K (every lane
+    # flushes at its last record)
+    lane_base = np.searchsorted(pos, np.arange(M) * K)
     # pad the flush set to a multiple of 8192, as the reference does
     P = pos.shape[0]
     Pp = -(-P // 8192) * 8192
@@ -201,6 +220,7 @@ def build_mulacc_walk(dev: "R1CSDevice") -> MulaccWalk:
     seg = np.concatenate([seg, np.full(Pp - P, 3 * n, np.int64)])
 
     cw = coeff_pad.reshape(M, K, nl).transpose(1, 2, 0)  # (K, nl, M)
+    packed = (cw[:, 0::2] | (cw[:, 1::2] << 16)).astype(np.uint32).view(np.int32)
     fl = flush.astype(np.int32).reshape(M, K).T          # (K, M)
     device = dev.A.rows.device
 
@@ -215,8 +235,15 @@ def build_mulacc_walk(dev: "R1CSDevice") -> MulaccWalk:
         seg=t(seg, np.int64),
         K=K,
         R=R,
-        S=_MULACC_S,
+        S=M // 128,
         n_rows=3 * n,
+        cols_walk=t(cols_pad.reshape(M, K).T, np.int32),
+        coeff_packed=t(packed, np.int32),
+        lane_base=t(lane_base, np.int32),
+        n_records=L,
+        n_flush=P,
+        n_row_flush=int(np.searchsorted(seg, 3 * n)),
+        n_cols=int(cols.max()) + 1 if L else 0,
     )
-    dev._mulacc_walk = walk
+    cache[lanes] = walk
     return walk

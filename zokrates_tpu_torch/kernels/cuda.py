@@ -94,13 +94,13 @@ def load() -> SimpleNamespace:
         "zkt_field": {
             "zkt_emul": [P, P, P, LL, LL, LL, LL, LL, I, L, L, U, P],
             "zkt_emul_tile": [],
-            "zkt_ereduce_wide": [P, P, LL, L, L, L, U, P],
+            "zkt_ereduce_wide": [P, P, LL, I, L, L, L, U, P],
         },
         "zkt_ntt": {
             "zkt_ntt_pass": [P, P, P, P, I, I, I, I, I, P, L, L, U, P],
         },
         "zkt_mulacc": {
-            "zkt_mulacc_walk": [P, P, P, P, I, I, I, L, L, U, P],
+            "zkt_mulacc_walk": [P, P, LL, P, P, P, P, P, I, I, I, LL, I, I, L, L, U, P],
         },
         "zkt_point": {
             "zkt_mixed_add_lm": [P, P, P, P, P, P, P, P, I, I, L, L, U, P],

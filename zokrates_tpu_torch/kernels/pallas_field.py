@@ -19,8 +19,9 @@ kernels: emul (its _emul_call / emul) and ereduce_wide (its _ereduce_call
 plain version (emul_plain, ereduce_wide_plain: jfield's mul and
 reduce_wide), which the wrapper runs only for tensors on the CPU; and the
 sparse matvec's multiply-accumulate walk mulacc_walk (its _mulacc_call /
-mulacc_walk), CUDA kernel in csrc/mulacc.cu, plain version
-mulacc_walk_plain; and the standalone point kernels over limb-major
+mulacc_walk, with the gathers around it: z in, the flushed runs' sums
+out), CUDA kernel in csrc/mulacc.cu, plain version mulacc_walk_plain;
+and the standalone point kernels over limb-major
 (nl, N) int32 coordinates, mixed_add_lm (the complete mixed add) and
 accumulate_lm (bucket accumulation by digit), CUDA kernels in
 csrc/point_elementwise.cu, plain versions mixed_add_lm_plain and
@@ -234,7 +235,8 @@ def emul(p: int, a, b):
 
 def ereduce_wide(p: int, t):
     """Lazy column sums -> the sum mod p, canonical (CUDA kernel
-    ereduce_kernel, the reference's ereduce_wide).
+    ereduce_kernel, the reference's ereduce_wide; ereduce_lane_kernel for
+    up to one tile of elements).
 
     t: (B, L, nl) int64 contiguous, each word a nonnegative column sum below
     2^47 (the plain version's range) of 16-bit-limb residues. Returns a new
@@ -252,42 +254,17 @@ def ereduce_wide(p: int, t):
 
     _check_aligned("t", t, 0)
     lib = cuda.load()
-    _, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32_FIELD)
+    n32, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32_FIELD)
     out = torch.empty_like(t)
     if out.numel() == 0:
         return out
     with torch.cuda.device(t.device):
-        rc = lib.zkt_ereduce_wide(t.data_ptr(), out.data_ptr(), t.numel() // spec.nl,
-                                  cuda.limbs32(spec.r2, spec.nl // 2), pl, one, n0,
+        rc = lib.zkt_ereduce_wide(t.data_ptr(), out.data_ptr(), t.numel() // spec.nl, n32,
+                                  cuda.limbs32(spec.r2, n32), pl, one, n0,
                                   torch.cuda.current_stream(t.device).cuda_stream)
     cuda.check(rc, "ereduce_wide")
     LAUNCHES["ereduce_wide"] += 1
     return out
-
-
-# ---------------------------------------------------------------------------
-# Fused multiply-accumulate segment walk (sparse matvec)
-# ---------------------------------------------------------------------------
-
-# records per lane the kernel's 32-bit limb sums hold exactly:
-# 2^16 * (2^16 - 1) < 2^32
-MULACC_MAX_K = 1 << 16
-
-
-def mulacc_walk_plain(p: int, z_walk, coeff_walk, flags_walk):
-    """Plain version of the mulacc_walk kernel: every record's product at
-    once (jfield's mul), then per lane the running sums restarted after
-    each flushed record, as differences of one cumulative sum. Same
-    arguments and result as mulacc_walk()."""
-    B, K, nl, M = z_walk.shape
-    prod = field_ops(p).mul(z_walk.permute(0, 1, 3, 2), coeff_walk.permute(0, 2, 1))  # (B, K, M, nl)
-    run = prod.cumsum(1)
-    k = torch.arange(K, device=z_walk.device)[:, None]
-    last = torch.where(flags_walk != 0, k, -1).cummax(0).values   # last flush at or before k
-    prev = torch.cat([last.new_full((1, M), -1), last[:-1]])     # ... strictly before k
-    base = run.gather(1, prev.clamp(min=0)[None, :, :, None].expand(B, K, M, nl))
-    out = run - torch.where((prev >= 0)[None, :, :, None], base, 0)
-    return out.permute(0, 1, 3, 2).contiguous()
 
 
 def _check_packed(name, t, dtype, shape):
@@ -299,49 +276,88 @@ def _check_packed(name, t, dtype, shape):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def mulacc_walk(p: int, z_walk, coeff_walk, flags_walk):
-    """Sparse-matvec walk (CUDA kernel mulacc_kernel, the reference's
-    mulacc_walk): lane m of proof b walks its K records in order; record k
-    adds the Montgomery product z*coeff limb by limb, without carries, into
-    the lane's 16-bit-limb accumulator, the accumulator after the add is
-    the record's output, and a record flagged nonzero resets it to 0 after
-    its output. So a flushed record's output is the lazy sum of its run.
+# ---------------------------------------------------------------------------
+# Fused multiply-accumulate segment walk (sparse matvec)
+# ---------------------------------------------------------------------------
 
-    z_walk: (B, K, nl, M) int64 gathered witness values (Montgomery,
-    canonical); coeff_walk: (K, nl, M) int64 Montgomery coefficients,
-    shared by the batch; flags_walk: (K, M) int32. All contiguous and
-    lane-minor. Returns (B, K, nl, M) int64 lazy sums, each limb below
-    2^16 * K (K <= MULACC_MAX_K). CPU tensors take mulacc_walk_plain; CUDA
-    tensors launch the kernel."""
+# records per lane the kernel's 32-bit limb sums hold exactly:
+# 2^16 * (2^16 - 1) < 2^32
+MULACC_MAX_K = 1 << 16
+
+
+def mulacc_walk_plain(p: int, Z_mont, walk):
+    """Plain version of the mulacc_walk kernel: every record's product at
+    once (jfield's mul), one cumulative sum over the record stream, and
+    each flush's run as the difference of the sums at its flush and at the
+    flush before it (a lane's first run starts after the previous lane's
+    last flush). Same arguments and result as mulacc_walk()."""
+    B, _, nl = Z_mont.shape
+    K, M, nf = walk.K, walk.M, walk.n_flush
+    coeff = walk.coeff_walk.permute(2, 0, 1).reshape(M * K, nl)  # record j = m*K + k
+    run = field_ops(p).mul(Z_mont[:, walk.cols], coeff).cumsum(1)
+    ends = run[:, walk.pos[:nf]]
+    out = torch.zeros((B, walk.pos.numel(), nl), dtype=torch.int64, device=Z_mont.device)
+    out[:, :nf] = ends
+    out[:, 1:nf] -= ends[:, :-1]
+    return out
+
+
+def mulacc_walk(p: int, Z_mont, walk):
+    """Sparse-matvec walk (CUDA kernel mulacc_kernel, the reference's
+    mulacc_walk, with the gathers of z before it and of the flushed
+    records after it fused in): lane m of proof b walks its K records in
+    order; record j adds the Montgomery product coeff[j] * Z_mont[b,
+    cols[j]] limb by limb, without carries, into the lane's 16-bit-limb
+    accumulator, and a record flagged to flush writes the accumulator to
+    its slot and resets it to 0. Slot i holds the lazy sum of the run that
+    ends at record walk.pos[i]: what the reference's per-record snapshot
+    holds there. Pad slots (i >= walk.n_flush) hold 0.
+
+    Z_mont: (B, m, nl) int64 Montgomery witness values, canonical,
+    contiguous, m at least walk.n_cols (the kernel reads z[col] unchecked);
+    walk: ir/r1cs_device.MulaccWalk on the same device.
+    Returns (B, P, nl) int64 lazy sums, P = walk.pos.numel(), each limb
+    below 2^16 * K (K <= MULACC_MAX_K). CPU tensors take mulacc_walk_plain;
+    CUDA tensors launch the kernel."""
     nl = field_spec(p).nl
-    if not isinstance(z_walk, torch.Tensor) or z_walk.dim() != 4:
-        raise ValueError(f"z_walk: expected a (B, K, {nl}, M) tensor")
-    B, K, _, M = z_walk.shape
-    _check_packed("z_walk", z_walk, torch.int64, (B, K, nl, M))
-    _check_packed("coeff_walk", coeff_walk, torch.int64, (K, nl, M))
-    _check_packed("flags_walk", flags_walk, torch.int32, (K, M))
+    _check_elems("Z_mont", Z_mont, nl, (3,))
+    if not Z_mont.is_contiguous():
+        raise ValueError("Z_mont: must be contiguous")
+    if Z_mont.shape[1] < walk.n_cols:
+        raise ValueError(f"Z_mont: {Z_mont.shape[1]} variables, the walk reads {walk.n_cols}")
+    K, M = walk.K, walk.M
+    _check_packed("cols_walk", walk.cols_walk, torch.int32, (K, M))
+    _check_packed("coeff_packed", walk.coeff_packed, torch.int32, (K, nl // 2, M))
+    _check_packed("flags_walk", walk.flags_walk, torch.int32, (K, M))
+    _check_packed("lane_base", walk.lane_base, torch.int32, (M,))
     if K > MULACC_MAX_K:
         raise ValueError(f"mulacc_walk: {K} records per lane, at most {MULACC_MAX_K}")
-    for name, t in (("coeff_walk", coeff_walk), ("flags_walk", flags_walk)):
-        if t.device != z_walk.device:
-            raise ValueError(f"{name}: on {t.device}, expected {z_walk.device}")
-    if z_walk.device.type == "cpu":
-        return mulacc_walk_plain(p, z_walk, coeff_walk, flags_walk)
-    if z_walk.device.type != "cuda":
-        raise ValueError(f"mulacc_walk: unsupported device {z_walk.device}")
+    for name in ("cols_walk", "coeff_packed", "flags_walk", "lane_base", "pos"):
+        t = getattr(walk, name)
+        if t.device != Z_mont.device:
+            raise ValueError(f"walk.{name}: on {t.device}, expected {Z_mont.device}")
+    if Z_mont.device.type == "cpu":
+        return mulacc_walk_plain(p, Z_mont, walk)
+    if Z_mont.device.type != "cuda":
+        raise ValueError(f"mulacc_walk: unsupported device {Z_mont.device}")
     from . import cuda
 
+    _check_aligned("Z_mont", Z_mont, 0)
     lib = cuda.load()
     _, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32_FIELD)
-    out = torch.empty_like(z_walk)
-    if out.numel() == 0:
+    B, m, _ = Z_mont.shape
+    out = torch.empty((B, walk.pos.numel(), nl), dtype=torch.int64, device=Z_mont.device)
+    if B == 0:
         return out
-    with torch.cuda.device(z_walk.device):
-        rc = lib.zkt_mulacc_walk(z_walk.data_ptr(), coeff_walk.data_ptr(), flags_walk.data_ptr(),
-                                 out.data_ptr(), B, K, M, pl, one, n0,
-                                 torch.cuda.current_stream(z_walk.device).cuda_stream)
+    zp = torch.empty((B, m, nl // 2), dtype=torch.int32, device=Z_mont.device)  # z as 32-bit limbs
+    with torch.cuda.device(Z_mont.device):
+        rc = lib.zkt_mulacc_walk(Z_mont.data_ptr(), zp.data_ptr(), m, walk.cols_walk.data_ptr(),
+                                 walk.coeff_packed.data_ptr(),
+                                 walk.flags_walk.data_ptr(), walk.lane_base.data_ptr(), out.data_ptr(), B, K, M,
+                                 walk.n_records, walk.n_flush, out.shape[1], pl, one, n0,
+                                 torch.cuda.current_stream(Z_mont.device).cuda_stream)
     cuda.check(rc, "mulacc_walk")
-    LAUNCHES["mulacc_walk"] += 1
+    LAUNCHES["mulacc_walk"] += 2  # two kernels: z packed, then the walk
     return out
 
 

@@ -22,7 +22,7 @@ configuration on hardware:
     and the A/B/C randomization, run in the native C host library
     (native/),
   * prove_batch proves B witnesses of one circuit with one batched h
-    stage (one mulacc_walk launch, one stacked NTT call per stage), the
+    stage (one mulacc_walk call, one stacked NTT call per stage), the
     MSMs proof by proof, one fetch, and the host tails on threads,
   * the MSM entry points the other schemes call (_msm_g1 / _msm_g2 over
     host point lists, _msm_packed_g1 / _msm_dev_g2 over device rows) run
@@ -51,7 +51,7 @@ from ..fields import params as P
 from ..fields.jfield import field_ops
 from ..fields.limbs import int_to_limbs, ints_to_limbs, limbs_to_ints, n_limbs
 from ..ir.r1cs import R1CS
-from ..ir.r1cs_device import R1CSDevice, build_mulacc_walk
+from ..ir.r1cs_device import MULACC_R, REFERENCE_LANES, R1CSDevice, build_mulacc_walk
 from ..ir.witness import Witness
 from ..kernels.ntt import domain_for_curve
 from ..kernels.pallas_field import emul, ereduce_wide, mulacc_walk
@@ -478,30 +478,38 @@ def _matvec_coo(p: int, dev: R1CSDevice, Z_mont: torch.Tensor) -> torch.Tensor:
     return ereduce_wide(p, sums)
 
 
-def _matvec_walk(p: int, dev: R1CSDevice, Z_mont: torch.Tensor) -> torch.Tensor:
+# lanes of the walk by batch size (walk_lanes): the counts at which the
+# card's _matvec_walk ran fastest on sha256, over 1024 to 32768 lanes
+# (PERF.md)
+_WALK_LANES = {1: 1 << 15, 16: 1 << 14}
+
+
+def walk_lanes(B: int, records: int = None) -> int:
+    """Lanes of the walk matvec for a batch of B proofs: the measured count
+    of _WALK_LANES for the largest batch size in it not above B, halved
+    while that leaves lanes of fewer than R records (`records`, when
+    given: the walk's record count), down to the reference's 1024."""
+    lanes = _WALK_LANES[max(b for b in _WALK_LANES if b <= max(B, 1))]
+    while records is not None and lanes > REFERENCE_LANES and records < lanes * MULACC_R:
+        lanes //= 2
+    return lanes
+
+
+def _matvec_walk(p: int, dev: R1CSDevice, Z_mont: torch.Tensor, lanes: int = None) -> torch.Tensor:
     """The reference's pipeline_walk matvec, same result as _matvec_coo:
-    gather z into the walk layout, one mulacc_walk launch for the batch,
-    the flushed records' lazy sums gathered and reduced, summed per row
-    (one extra row, 3n, takes the padding), and reduced again."""
-    w = build_mulacc_walk(dev)
+    one mulacc_walk call for the batch (the lazy sums of every flushed
+    run, z gathered in the kernel) on a plan of `lanes` lanes (walk_lanes
+    by default), the sums reduced, summed per row (the slots of the 3n
+    rows; the rest, the padded records' runs and the pad slots, whose seg
+    is the reference's extra row 3n, hold 0), and reduced again."""
     B, _, nl = Z_mont.shape
-    K, M = w.K, w.M
-    d = Z_mont.device
-    bi = torch.arange(B, device=d)
-    li = torch.arange(nl, device=d)
-    # zw[b, k, l, m] = Z_mont[b, cols[m*K + k], l]
-    zw = Z_mont[bi[:, None, None, None], w.cols.view(M, K).T[None, :, None, :],
-                li[None, None, :, None]].contiguous()
-    out = mulacc_walk(p, zw, w.coeff_walk, w.flags_walk)
-    del zw
-    # record j of the stream is lane j // K's step j % K
-    snap = out[bi[:, None, None], (w.pos % K)[None, :, None], li[None, None, :],
-               (w.pos // K)[None, :, None]].contiguous()
-    del out
-    part = ereduce_wide(p, snap)
-    sums = torch.zeros((B, w.n_rows + 1, nl), dtype=torch.int64, device=d)
-    sums.index_add_(1, w.seg, part)
-    return ereduce_wide(p, sums[:, : w.n_rows].contiguous())
+    if lanes is None:
+        lanes = walk_lanes(B, sum(mat.rows_np.size for mat in (dev.A, dev.B, dev.C)))
+    w = build_mulacc_walk(dev, lanes)
+    part = ereduce_wide(p, mulacc_walk(p, Z_mont, w))
+    sums = torch.zeros((B, w.n_rows, nl), dtype=torch.int64, device=Z_mont.device)
+    sums.index_add_(1, w.seg[: w.n_row_flush], part[:, : w.n_row_flush])
+    return ereduce_wide(p, sums)
 
 
 def _h_stage(curve: str, dev: R1CSDevice, Z: torch.Tensor) -> torch.Tensor:
@@ -1243,7 +1251,7 @@ def prove(r1cs: R1CS, pk: ProvingKey, witness: Witness, rng=None, device="cuda",
 def prove_batch(r1cs: R1CS, pk: ProvingKey, witnesses: Sequence[Witness], rng=None,
                 device="cuda", timings: Optional[dict] = None) -> List[Proof]:
     """Proves B witnesses of one circuit in one batched pipeline: one upload
-    of the witnesses, one batched h stage (one mulacc_walk launch and one
+    of the witnesses, one batched h stage (one mulacc_walk call and one
     stacked transform per NTT stage on a CUDA device), the MSMs proof by
     proof, one fetch, and the host tails on threads. Equivalent to
     [prove(r1cs, pk, w) for w in witnesses]: rng() draws r and s for each
