@@ -101,8 +101,28 @@ Phases, each timed:
      every edge case (P at infinity, P == Q, P == -Q, digit 0, digits >=
      n_buckets, buckets hit several times); and the throughput probe: the
      card's rate of 32-bit IMAD and of 8-limb CIOS products
-  10. the kernels JSON line (each check record with its width in 32-bit
-     limbs and its curve), the nvidia-smi line, and the result line.
+  10. Marlin: the universal setup of the CLI's default size (2^17 powers
+     of tau, fixed-base on the card), the index of the stdlib's Pedersen-512
+     circuit (port_artifacts/pedersen512_bn128.out.gz: |H| = 4,096, |K| =
+     16,384) and 3 proofs of its witness for inputs [0, ..., 15] with a
+     seeded prover rng, each verified, each split into its rounds
+     (transforms, MSMs and host Python apart), a flipped evals_beta
+     entry, a flipped t_beta and a wrong public output rejected; the
+     launch counts set to 0 before the universal setup, the NTT, emul and
+     MSM kernels launched by every proof, no plain version on the card and
+     no Python scalar multiply of a G1 point over setup, index and proofs
+     (MarlinGuard); one more proof under torch.profiler; then every walk,
+     suffix and epilogue launch of two MSMs of the first proof (h2's
+     commitment, padded to 2^17 points in the c = 8, M1 = 1024
+     configuration, and a hiding commitment's 4-point MSM, M1 = 32)
+     against its plain version, the NTT at (1, 2^17) both ways and at the
+     index's (1, 2^14) inverse, emul at the (1, 2^17) one-row shape; and a
+     BLS12-381 toy (the cube program, SRS of degree 64: setup, index, a
+     proof that verifies, a forgery that does not, the MSM kernels at 12
+     limbs only)
+  11. the kernels JSON line (each check record with its width in 32-bit
+     limbs and its curve; launches on every path, the Marlin path's also
+     per proof), the nvidia-smi line, and the result line.
 
 Exits non-zero on any failure; with no CUDA device it raises before
 printing a result.
@@ -1457,13 +1477,15 @@ def sweep_suffix_split(args, want):
     return times
 
 
-def check_suffix_real(args, tag: str = "", width: int = 8, curve: str = "bn128"):
+def check_suffix_real(args, tag: str = "", width: int = 8, curve: str = "bn128", label: str = "h16 real",
+                      sweep: bool = True):
     """The shared-bucket h MSM's suffix on one proof's own dense bucket
-    table (`args` as compare_h_msm captured them) against its plain
-    version, bit for bit, timed, and at every k (sweep_suffix_split). The
-    random-table check at the same shape draws every slot from a pool of
-    points; the real table holds each bucket's one or two records, with
-    empty slots at infinity."""
+    table (`args` as compare_h_msm captured them; another MSM's by its
+    `label`) against its plain version, bit for bit, timed, and with
+    `sweep` at every k (sweep_suffix_split). The random-table check at the
+    same shape draws every slot from a pool of points; the real table
+    holds each bucket's one or two records, with empty slots at
+    infinity."""
     import torch
     from zokrates_tpu_torch.kernels import msm_sorted as ms
 
@@ -1477,12 +1499,62 @@ def check_suffix_real(args, tag: str = "", width: int = 8, curve: str = "bn128")
     ainf, binf = ((t[:, 2 * en:] == 0).all(1).cpu().numpy() for t in (a, b))
     mults = suffix_adds(ainf, binf) * GENERAL_MULS * (1 if beta is None else FQ2_MULS)
     nbytes = 4 * (a.numel() + b.numel() + out.numel())
-    rec = _record("suffix", "Fq" if beta is None else "Fq2", "fold=False h16 real" + tag, (Lb, M), (out,), (ref,),
+    rec = _record("suffix", "Fq" if beta is None else "Fq2", f"fold=False {label}{tag}", (Lb, M), (out,), (ref,),
                   ms_k, ms_p, mults, nbytes, width, curve)
     rec["empty_slots"] = int(ainf.sum() + binf.sum())
     rec.update(suffix_launch(Lb, M))
-    rec["sweep"] = sweep_suffix_split(args, {ms.suffix_split(Lb, M): ref})
+    if sweep:
+        rec["sweep"] = sweep_suffix_split(args, {ms.suffix_split(Lb, M): ref})
     return rec
+
+
+def check_walk_call(args, label: str, width: int = 8, curve: str = "bn128", sweep: bool = False):
+    """One captured walk call (`args` as the MSM passed them) against its
+    plain version, bit for bit, timed; with `sweep`, also at every S
+    (sweep_walk_split). G1: a coordinate's rows are its limbs."""
+    import torch
+    from zokrates_tpu_torch.kernels import msm_sorted as ms
+
+    qrows, flags, p, mode, safe, beta = args
+    K, L = flags.shape
+    out = ms.walk(*args)
+    torch.cuda.synchronize()
+    ref, ms_p = host_ms(lambda: ms.walk_plain(*args))
+    ms_k = cuda_ms(lambda: ms.walk(*args))
+    fl = flags.cpu().numpy()
+    qinf = np.zeros(fl.shape, bool)
+    if mode == "general":
+        en = nl_of(p)
+        qinf = (qrows[:, 2 * en:3 * en] == 0).all(1).cpu().numpy()
+    mults = walk_adds(fl, qinf) * (MIXED_MULS if mode == "mixed" else GENERAL_MULS)
+    nbytes = 4 * (qrows.numel() + flags.numel() + sum(t.numel() for t in out))
+    label = ("general" if mode == "general" else mode + ("-safe" if safe else "-unsafe")) + " " + label
+    rec = _record("walk", "Fq", label, (K, L), out, ref, ms_k, ms_p, mults, nbytes, width, curve)
+    rec["collisions"] = int(out[1].sum())
+    rec["flushes"] = int(np.count_nonzero(fl & 1))
+    rec.update(walk_launch(K, L))
+    if sweep:
+        rec["sweep"] = sweep_walk_split(args, out)
+    return rec
+
+
+def check_fold_call(args, label: str, width: int = 8, curve: str = "bn128"):
+    """One captured suffix epilogue call against its plain version, bit
+    for bit, timed (G1: rows [acc | tot], a coordinate's rows its limbs)."""
+    import torch
+    from zokrates_tpu_torch.kernels import msm_sorted as ms
+
+    out6, p, G, lw, L, beta = args
+    got = ms.suffix_fold(*args)
+    torch.cuda.synchronize()
+    ref, ms_p = host_ms(lambda: ms.suffix_fold_plain(*args))
+    ms_k = cuda_ms(lambda: ms.suffix_fold(*args))
+    en = nl_of(p)
+    ainf = (out6[2 * en:3 * en] == 0).all(0).cpu().numpy()
+    tinf = (out6[5 * en:6 * en] == 0).all(0).cpu().numpy()
+    mults = fold_mults(ainf, tinf, G, lw, L)
+    nbytes = 4 * out6.numel() + 8 * sum(t.numel() for t in got)
+    return _record("suffix_fold", "Fq", label, (G, lw, L), got, ref, ms_k, ms_p, mults, nbytes, width, curve)
 
 
 def check_h16_real(calls):
@@ -1493,43 +1565,12 @@ def check_h16_real(calls):
     (sweep_walk_split), the suffix at every k (check_suffix_real). The
     random-flag checks at the same shapes flush 25% of positions; the real
     plan's bucket runs are about 16 long."""
-    import torch
-    from zokrates_tpu_torch.kernels import msm_sorted as ms
-
-    records = {"walk_mixed": [], "walk_general": [], "suffix": [], "suffix_fold": []}
     walks = calls["walk"]
+    records = {"walk_mixed": [], "walk_general": [], "suffix": [], "suffix_fold": []}
     for args in (walks[0], walks[1]):
-        qrows, flags, p, mode, safe, beta = args
-        K, L = flags.shape
-        out = ms.walk(*args)
-        torch.cuda.synchronize()
-        ref, ms_p = host_ms(lambda: ms.walk_plain(*args))
-        ms_k = cuda_ms(lambda: ms.walk(*args))
-        fl = flags.cpu().numpy()
-        qinf = np.zeros(fl.shape, bool)
-        if mode == "general":
-            qinf = (qrows[:, 32:48] == 0).all(1).cpu().numpy()
-        mults = walk_adds(fl, qinf) * (MIXED_MULS if mode == "mixed" else GENERAL_MULS)
-        nbytes = 4 * (qrows.numel() + flags.numel() + sum(t.numel() for t in out))
-        label = ("mixed-safe" if mode == "mixed" else "general") + " h16 real"
-        rec = _record("walk", "Fq", label, (K, L), out, ref, ms_k, ms_p, mults, nbytes)
-        rec["collisions"] = int(out[1].sum())
-        rec["flushes"] = int(np.count_nonzero(fl & 1))
-        rec.update(walk_launch(K, L))
-        rec["sweep"] = sweep_walk_split(args, out)
-        records["walk_" + mode].append(rec)
+        records["walk_" + args[3]].append(check_walk_call(args, "h16 real", sweep=True))
     records["suffix"].append(check_suffix_real(calls["suffix"][0]))
-    out6, p, G, lw, L, beta = calls["suffix_fold"][0]
-    got = ms.suffix_fold(out6, p, G, lw, L, beta)
-    torch.cuda.synchronize()
-    ref, ms_p = host_ms(lambda: ms.suffix_fold_plain(out6, p, G, lw, L, beta))
-    ms_k = cuda_ms(lambda: ms.suffix_fold(out6, p, G, lw, L, beta))
-    ainf = (out6[32:48] == 0).all(0).cpu().numpy()
-    tinf = (out6[80:96] == 0).all(0).cpu().numpy()
-    mults = fold_mults(ainf, tinf, G, lw, L)
-    nbytes = 4 * out6.numel() + 8 * sum(t.numel() for t in got)
-    records["suffix_fold"].append(
-        _record("suffix_fold", "Fq", "h16 MSM real", (G, lw, L), got, ref, ms_k, ms_p, mults, nbytes))
+    records["suffix_fold"].append(check_fold_call(calls["suffix_fold"][0], "h16 MSM real"))
     return records
 
 
@@ -1818,6 +1859,451 @@ def run_gm17_path(r1cs, wit, dev, smi):
     return launches, widths, pk
 
 
+# ---------------------------------------------------------------------------
+# Marlin: the universal setup at the CLI's default size, the Pedersen-512 index
+# ---------------------------------------------------------------------------
+
+
+MARLIN_DEGREE = 1 << 17        # the CLI's universal-setup -n 17: 131,072 powers of tau
+MARLIN_PROOFS = 3
+# the kernels every Marlin prove launches (KZG commitments: the sorted MSM;
+# fft_ints / ifft_ints: the NTT and emul)
+MARLIN_KERNELS = ("walk_mixed", "walk_general", "suffix", "suffix_fold", "ntt", "emul")
+MARLIN_STAGES = ("round 1", "round 2", "round 3", "openings")
+
+
+def load_pedersen512():
+    """The stdlib's 512-bit Pedersen hash compiled for bn128
+    (port_artifacts/pedersen512_bn128.out.gz), its R1CS and the witness of
+    inputs [0, ..., 15] from the port's interpreter."""
+    import gzip
+
+    from zokrates_tpu_torch.interp.interpreter import Interpreter
+    from zokrates_tpu_torch.ir.r1cs import r1cs_from_prog
+    from zokrates_tpu_torch.ir.serialize import deserialize
+
+    with gzip.open(os.path.join(ROOT, "port_artifacts", "pedersen512_bn128.out.gz"), "rb") as f:
+        prog = deserialize(f.read())
+    return r1cs_from_prog(prog), Interpreter().execute(prog, list(range(16)))
+
+
+class MarlinGuard(PlainGuard):
+    """PlainGuard with Marlin's index and prove as its stages (plain field
+    products or reductions on CUDA tensors inside marlin.setup_with_srs or
+    marlin.prove are counted), and besides, at any depth (the universal
+    setup too), every call of a kernel wrapper's plain version on a CUDA
+    tensor and every Python scalar multiply of a G1 point."""
+
+    def __init__(self):
+        super().__init__()
+        from zokrates_tpu_torch.ec.curve import PointG1
+        from zokrates_tpu_torch.kernels import msm_sorted, ntt_pallas, pallas_field
+        from zokrates_tpu_torch.schemes import marlin
+
+        self.patches += [(marlin, "setup_with_srs", self._stage), (marlin, "prove", self._stage),
+                         (PointG1, "__mul__", self._count), (PointG1, "__rmul__", self._count)]
+        for mod, names in ((msm_sorted, ("walk_plain", "suffix_plain", "suffix_fold_plain")),
+                           (pallas_field, ("emul_plain", "ereduce_wide_plain")),
+                           (ntt_pallas, ("fft_core_plain",))):
+            self.patches += [(mod, name, self._any) for name in names]
+
+    def _any(self, name, fn):
+        def wrapped(*args, **kw):
+            import torch
+
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                self.calls[name] = self.calls.get(name, 0) + 1
+            return fn(*args, **kw)
+        return wrapped
+
+    def _count(self, name, fn):
+        def wrapped(*args, **kw):
+            self.calls["G1 " + name] = self.calls.get("G1 " + name, 0) + 1
+            return fn(*args, **kw)
+        return wrapped
+
+
+class MarlinClock:
+    """While active, splits each marlin.prove run through prove() into its
+    stages by the transcript's squeezes (alpha ends round 1, beta round 2,
+    delta round 3, then the openings) and adds up, per stage, the wall time
+    inside Domain.fft_ints / ifft_ints ("transforms"; of it, the host's
+    limb conversions, "conversions") and inside groth16._msm_g1, the KZG
+    commitments' MSM entry point ("msms"; it ends in a host read, so its
+    wall time holds its device work); the rest of a stage is host Python
+    (polynomial arithmetic, divisions, evaluations, the transcript). Also
+    counts the transforms by (size, inverse) and the MSMs by coefficient
+    count."""
+
+    KEYS = ("wall", "transforms", "conversions", "msms")
+
+    def __init__(self):
+        from collections import Counter
+
+        self.sizes = Counter()
+        self.runs = []
+
+    def _stage(self):
+        return MARLIN_STAGES[(self.squeezes >= 1) + (self.squeezes >= 5) + (self.squeezes >= 6)]
+
+    def _close(self):
+        now = time.perf_counter()
+        self.cur[self._stage()]["wall"] += now - self.t_mark
+        self.t_mark = now
+
+    def prove(self, fn):
+        """fn() (one marlin.prove), its stage split appended to runs."""
+        self.squeezes = 0
+        self.cur = {st: dict.fromkeys(self.KEYS, 0.0) for st in MARLIN_STAGES}
+        self.t_mark = time.perf_counter()
+        out = fn()
+        self._close()
+        self.runs.append(self.cur)
+        return out
+
+    def _timed(self, key, fn, size=None):
+        def wrapped(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.cur[self._stage()][key] += time.perf_counter() - t0
+                if size is not None:
+                    self.sizes[size(*args)] += 1
+        return wrapped
+
+    def __enter__(self):
+        from zokrates_tpu_torch.kernels import ntt
+        from zokrates_tpu_torch.schemes import groth16, marlin
+
+        squeeze = marlin._Transcript.squeeze
+
+        def counted(tr, r):
+            if self.squeezes in (0, 4, 5):  # alpha, beta, delta: a stage ends
+                self._close()
+            self.squeezes += 1
+            return squeeze(tr, r)
+
+        self.saved = [(marlin._Transcript, "squeeze", squeeze), (ntt.Domain, "_ints", ntt.Domain._ints),
+                      (ntt, "ints_to_limbs", ntt.ints_to_limbs), (ntt, "limbs_to_ints", ntt.limbs_to_ints),
+                      (groth16, "_msm_g1", groth16._msm_g1)]
+        marlin._Transcript.squeeze = counted
+        ntt.Domain._ints = self._timed("transforms", ntt.Domain._ints,
+                                       lambda dom, xs, inverse, device: ("ifft" if inverse else "fft", dom.n))
+        ntt.ints_to_limbs = self._timed("conversions", ntt.ints_to_limbs)
+        ntt.limbs_to_ints = self._timed("conversions", ntt.limbs_to_ints)
+        groth16._msm_g1 = self._timed("msms", groth16._msm_g1,
+                                      lambda curve, points, scalars, device=None: ("msm", len(scalars)))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+
+    def report(self, runs):
+        """Mean stage split over `runs` (indices into runs), in ms, logged
+        with the host share of each stage."""
+        mean = {st: {k: sum(self.runs[i][st][k] for i in runs) / len(runs) * 1e3 for k in self.KEYS}
+                for st in MARLIN_STAGES}
+        for st, v in mean.items():
+            host = v["wall"] - v["transforms"] - v["msms"]
+            log(f"    {st:9s} {v['wall']:9.1f} ms: transforms {v['transforms']:8.1f} (host conversions "
+                f"{v['conversions']:7.1f}), MSMs {v['msms']:8.1f}, host Python {host:8.1f}")
+            v["host_python"] = host
+        return mean
+
+
+class MsmPick(Capture):
+    """While active, keeps the walk, suffix and epilogue calls (Capture)
+    of two MSMs of the first marlin.prove: h2's commitment (the third KZG
+    commitment of round 3, the twelfth kzg.commit of a proof) and the
+    first hiding commitment's gamma part (w's blinder, 3 scalars: the
+    4-point MSM). Calls of every other MSM are dropped."""
+
+    H2_COMMIT = 11
+
+    def __init__(self):
+        super().__init__(self._keep)
+        self.tag = None
+        self.picked = {"h2": {n: [] for n in self.NAMES}, "hiding": {n: [] for n in self.NAMES}}
+        self.n_commit = self.n_gamma = 0
+        self.sizes = {}
+
+    def _keep(self, name, args):
+        if self.tag is not None:
+            self.picked[self.tag][name].append(args)
+
+    def _tagged(self, fn, which):
+        def wrapped(srs, coeffs, *args, **kw):
+            n = self.n_commit if which == "commit" else self.n_gamma
+            tag = {("commit", self.H2_COMMIT): "h2", ("gamma", 0): "hiding"}.get((which, n))
+            if which == "commit":
+                self.n_commit += 1
+            else:
+                self.n_gamma += 1
+            if tag is None or self.sizes.get(tag) is not None:
+                return fn(srs, coeffs, *args, **kw)
+            self.tag, self.sizes[tag] = tag, len(coeffs)
+            try:
+                return fn(srs, coeffs, *args, **kw)
+            finally:
+                self.tag = None
+        return wrapped
+
+    def __enter__(self):
+        from zokrates_tpu_torch.schemes import kzg
+
+        self.kzg_saved = (kzg.commit, kzg.commit_gamma)
+        kzg.commit = self._tagged(kzg.commit, "commit")
+        kzg.commit_gamma = self._tagged(kzg.commit_gamma, "gamma")
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from zokrates_tpu_torch.schemes import kzg
+
+        super().__exit__(*exc)
+        kzg.commit, kzg.commit_gamma = self.kzg_saved
+
+
+def check_picked_msm(calls, label: str, width: int = 8, curve: str = "bn128"):
+    """Every walk, suffix and epilogue call of one captured MSM against its
+    plain version, bit for bit, timed, with its bound."""
+    records = {"walk_mixed": [], "walk_general": [], "suffix": [], "suffix_fold": []}
+    for args in calls["walk"]:
+        records["walk_" + args[3]].append(check_walk_call(args, label, width, curve))
+    for args in calls["suffix"]:
+        records["suffix"].append(check_suffix_real(args, "", width, curve, label, sweep=False))
+    for args in calls["suffix_fold"]:
+        records["suffix_fold"].append(check_fold_call(args, label, width, curve))
+    return records
+
+
+def cube_r1cs(curve: str):
+    """The cube program of the JAX package's tests (y == x^3 + x + 5, x
+    private, y public) over the curve's r: instance [one, y], witness [x,
+    t1 = x*x, t2 = t1*x] (dense index = IR variable), with the witness of
+    x = 3."""
+    from zokrates_tpu_torch.ir.r1cs import R1CS
+    from zokrates_tpu_torch.ir.witness import Witness
+
+    y, x, t1, t2 = 1, 2, 3, 4
+    A = [[(x, 1)], [(t1, 1)], [(0, 1)]]
+    B = [[(x, 1)], [(x, 1)], [(t2, 1), (x, 1), (0, 5)]]
+    C = [[(t1, 1)], [(t2, 1)], [(y, 1)]]
+    vals = {x: 3, t1: 9, t2: 27, y: 35}
+    return R1CS(curve, 2, 3, A, B, C, {v: v for v in range(1, 5)}), Witness(vals)
+
+
+def marlin_forgeries(marlin, vk, proof, curve: str):
+    """A flipped evals_beta entry, a flipped t_beta and a wrong public
+    output must fail marlin.verify. Returns their names."""
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.schemes.types import Proof, fr_to_json
+
+    def copy():
+        return Proof.from_json(json.loads(json.dumps(proof.to_json())))
+
+    def flipped(*path):
+        bad = copy()
+        d = bad.points
+        for key in path[:-1]:
+            d = d[key]
+        d[path[-1]] = fr_to_json(int(d[path[-1]], 16) ^ 1, curve)
+        return bad
+
+    wrong = copy()
+    wrong.inputs[0] = fr_to_json((int(wrong.inputs[0], 16) + 1) % P.SCALAR_FIELDS[curve].p, curve)
+    for name, bad in (("flipped evals_beta z_a", flipped("evals_beta", "z_a")),
+                      ("flipped t_beta", flipped("t_beta")), ("wrong public output", wrong)):
+        ok = marlin.verify(vk, bad)
+        log(f"  verify {name}: {ok}")
+        if ok:
+            raise AssertionError(f"a Marlin proof with a {name} verified")
+
+
+def marlin_seeded(curve: str, seed: int):
+    from zokrates_tpu_torch.fields import params as P
+
+    rng = random.Random(seed)
+    r = P.SCALAR_FIELDS[curve].p
+    return lambda: rng.randrange(1, r)
+
+
+def run_marlin_path(dev, smi, records):
+    """Marlin on the card: the universal setup at MARLIN_DEGREE, the index
+    of the Pedersen-512 circuit, MARLIN_PROOFS proofs of its witness with a
+    seeded prover rng (each verified, the first split into its stages and
+    two of its MSMs captured), the forgeries, and one more proof under
+    torch.profiler; the launch counts set to 0 just before the universal
+    setup; then every kernel at this path's shapes against its plain
+    version (appended to `records`), and a BLS12-381 toy. Returns the
+    launch counts over setup, index and proofs, and per proof."""
+    import torch
+    from zokrates_tpu_torch.kernels import msm_sorted, pallas_field
+    from zokrates_tpu_torch.kernels.fixed_base import fixed_base_for
+    from zokrates_tpu_torch.schemes import marlin
+
+    curve = "bn128"
+    log("== Marlin: the Pedersen-512 circuit (port_artifacts/pedersen512_bn128.out.gz)")
+    t0 = time.perf_counter()
+    r1cs, wit = load_pedersen512()
+    log(f"  {r1cs.num_constraints} constraints, {r1cs.num_variables} variables, witness of [0..15] by the port's "
+        f"interpreter ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    fb = fixed_base_for(curve, "g1")
+    log(f"  fixed-base window table (built once a process, on the host: {fb.W} windows of {1 << fb.c} points by "
+        f"integer adds, {fb.W} window bases by a Python multiply by 2^{fb.c}; Groth16's setup shares it): "
+        f"{time.perf_counter() - t0:.2f} s")
+    clear_launches()
+    with MarlinGuard() as guard:
+        t0 = time.perf_counter()
+        srs = marlin.universal_setup(curve, MARLIN_DEGREE, rng=marlin_seeded(curve, SEED + 20), device=dev)
+        torch.cuda.synchronize()
+        t_srs = time.perf_counter() - t0
+        log(f"  universal setup: {len(srs.powers_g1)} powers of tau and {len(srs.gamma_powers_g1)} hiding powers "
+            f"in {t_srs:.2f} s on the card (fixed-base; {smi})")
+        after_srs = launch_counts()
+        t0 = time.perf_counter()
+        pk, vk = marlin.setup_with_srs(srs, r1cs, device=dev)
+        torch.cuda.synchronize()
+        t_index = time.perf_counter() - t0
+        after_index = launch_counts()
+        nnz = [len(pk.mats[m].entries) for m in "abc"]
+        log(f"  index: |H| = {pk.n}, |K| = {pk.k}, nonzeros {nnz}, needs {max(pk.n, 6 * pk.k - 7)} powers: "
+            f"{t_index:.2f} s ({smi}); launches {after_index}")
+
+        proofs, walls = [], []
+        with MarlinClock() as clock, MsmPick() as pick, ShapeTally() as tally:
+            for i in range(MARLIN_PROOFS):
+                rand = marlin_seeded(curve, SEED + 30 + i)
+                t0 = time.perf_counter()
+                proofs.append(clock.prove(lambda: marlin.prove(r1cs, pk, wit, rng=rand, device=dev)))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                log(f"  prove {i}: {walls[-1] * 1e3:.1f} ms")
+    launches = launch_counts()
+    per_proof = {k: (v - after_index.get(k, 0)) / MARLIN_PROOFS for k, v in launches.items()}
+    tally.report(MARLIN_PROOFS, "Marlin proof")
+    log(f"  launches over the universal setup {after_srs}, the index {after_index}, all {launches}; "
+        f"per proof {per_proof}")
+    log(f"  launches by width (kernel, 32-bit limbs): {dict(msm_sorted.WIDTH_LAUNCHES)} "
+        f"{dict(pallas_field.WIDTH_LAUNCHES)}")
+    log(f"  plain versions on the card and Python G1 scalar multiplies over setup, index and proofs: "
+        f"{guard.calls or 0}")
+    if guard.calls:
+        raise AssertionError(f"plain versions or Python scalar multiplies ran on the Marlin path: {guard.calls}")
+    missing = [k for k in MARLIN_KERNELS if per_proof.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels {missing} were not launched by the Marlin proofs: {per_proof}")
+    log(f"  transforms and MSMs a proof by (kind, size): "
+        f"{ {k: v / MARLIN_PROOFS for k, v in sorted(clock.sizes.items())} }")
+    steady = list(range(1, MARLIN_PROOFS))
+    log(f"  stage split, mean of proofs {steady[0]}..{steady[-1]} ({smi}):")
+    split = clock.report(steady)
+    log("  stage split of proof 0 (first transforms and MSMs at each size):")
+    clock.report([0])
+
+    verify_ms = []
+    for i, proof in enumerate(proofs):
+        t0 = time.perf_counter()
+        ok = marlin.verify(vk, proof)
+        verify_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"  verify {i}: {ok} ({verify_ms[-1]:.1f} ms)")
+        if not ok:
+            raise AssertionError(f"Marlin proof {i} failed to verify")
+    if len({json.dumps(pr.points, sort_keys=True) for pr in proofs}) != len(proofs):
+        raise AssertionError("Marlin proofs with distinct prover rngs are not distinct")
+    marlin_forgeries(marlin, vk, proofs[0], curve)
+    busy = profile_marlin(r1cs, pk, wit, dev)
+    ms_proof = sum(walls[1:]) / len(walls[1:]) * 1e3
+    log(f"  Marlin Pedersen-512 {curve}: setup {t_srs:.2f} s, index {t_index:.2f} s, {ms_proof:.1f} ms/proof "
+        f"(mean of proofs 1..{len(walls) - 1}), verify {sum(verify_ms) / len(verify_ms):.1f} ms; {smi}")
+    result = {"setup_s": t_srs, "index_s": t_index, "ms_proof": ms_proof, "walls_ms": [w * 1e3 for w in walls],
+              "verify_ms": verify_ms, "split_ms": split, "busy": busy}
+
+    log("== Marlin kernel checks (kernel vs plain version at this path's shapes, bit-equal)")
+    t0 = time.perf_counter()
+    log(f"  captured MSMs: coefficients {pick.sizes}")
+    for tag, calls in pick.picked.items():
+        if not calls["walk"]:
+            raise AssertionError(f"no MSM was captured for {tag}")
+        for name, recs in check_picked_msm(calls, f"marlin {tag}").items():
+            records[name] += recs
+    del pick
+    n = max(size for kind, size in clock.sizes if kind == "fft")
+    for fr in ({"emul": [("marlin n^-1, to/from Montgomery", "Fr", 1, n, "row")], "ereduce_wide": [],
+                "ntt": (n, [("marlin forward x1", 1, False), ("marlin inverse x1", 1, True)])},
+               {"emul": [], "ereduce_wide": [], "ntt": (pk.k, [("marlin index inverse x1", 1, True)])}):
+        for name, recs in check_field_kernels(fr, dev, SEED + 21).items():
+            records[name] += recs
+    log(f"  checks: {time.perf_counter() - t0:.1f} s")
+
+    log("== Marlin BLS12-381: the cube program, SRS of degree 64")
+    run_marlin_bls12_381_toy(dev)
+    return launches, per_proof, result
+
+
+def profile_marlin(r1cs, pk, wit, dev):
+    """One more Marlin proof under torch.profiler: its wall time, the
+    card's busy time (kernels and copies) and the kernels that take most
+    of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from zokrates_tpu_torch.schemes import marlin
+
+    rand = marlin_seeded(r1cs.curve, SEED + 40)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        marlin.prove(r1cs, pk, wit, rng=rand, device=dev)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_ev) / 1e3
+    if busy <= 0:
+        log(f"  profiled Marlin proof: {wall:.1f} ms wall; device busy time not measured "
+            "(the profiler recorded no device events)")
+        return {"wall_ms": wall, "busy_ms": None}
+    log(f"  profiled Marlin proof: {wall:.1f} ms wall, device busy {busy:.1f} ms (idle share {1 - busy / wall:.3f}); "
+        "top device time:")
+    for e in sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"    {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    return {"wall_ms": wall, "busy_ms": busy}
+
+
+def run_marlin_bls12_381_toy(dev):
+    """Marlin on BLS12-381 on the card on the cube program: universal setup
+    of degree 64, index, one proof that verifies, a forgery that does not,
+    every MSM kernel launched at 12 limbs only."""
+    from zokrates_tpu_torch.schemes import marlin
+
+    curve = "bls12_381"
+    r1cs, wit = cube_r1cs(curve)
+    clear_launches()
+    t0 = time.perf_counter()
+    srs = marlin.universal_setup(curve, 64, rng=marlin_seeded(curve, SEED + 50), device=dev)
+    pk, vk = marlin.setup_with_srs(srs, r1cs, device=dev)
+    t1 = time.perf_counter()
+    proof = marlin.prove(r1cs, pk, wit, rng=marlin_seeded(curve, SEED + 51), device=dev)
+    t2 = time.perf_counter()
+    ok = marlin.verify(vk, proof)
+    log(f"  {curve} cube ({r1cs.num_constraints} constraints): setup and index {t1 - t0:.2f} s, prove "
+        f"{(t2 - t1) * 1e3:.1f} ms, verify: {ok}; 12-limb MSM launches "
+        f"{check_width(12, 'the Marlin BLS12-381 proof')}")
+    if not ok:
+        raise AssertionError("the Marlin BLS12-381 proof failed to verify")
+    bad = json.loads(json.dumps(proof.to_json()))
+    from zokrates_tpu_torch.schemes.types import Proof, fr_to_json
+
+    bad["proof"]["evals_beta"]["z_a"] = fr_to_json(int(bad["proof"]["evals_beta"]["z_a"], 16) ^ 1, curve)
+    ok = marlin.verify(vk, Proof.from_json(bad))
+    log(f"  verify flipped evals_beta z_a: {ok}")
+    if ok:
+        raise AssertionError("a forged Marlin BLS12-381 proof verified")
+
+
 def main():
     import torch
 
@@ -1924,6 +2410,11 @@ def main():
     probe_rates(dev)
     log(f"  checks: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    launches_marlin, marlin_per_proof, marlin_result = run_marlin_path(dev, smi, records)
+    log(f"  Marlin phase: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"marlin": marlin_result}), flush=True)
+
     kernels = []
     for name, recs in records.items():
         head = next(r for r in recs if (r["field"], r["mode"]) == MAIN_VARIANT[name])
@@ -1937,6 +2428,8 @@ def main():
             "launches_bls12_381": launches_bls.get(name, 0),
             "launches_bls12_381_batch": launches_bls_batch.get(name, 0),
             "launches_gm17_bls12_381": launches_gm17_bls.get(name, 0),
+            "launches_marlin": launches_marlin.get(name, 0),
+            "launches_marlin_per_proof": marlin_per_proof.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None,

@@ -3,7 +3,9 @@ suffix and suffix epilogue, field_elementwise.cu's emul and ereduce_wide,
 ntt.cu's transform passes, mulacc.cu's matvec walk, point_elementwise.cu's
 mixed_add_lm and accumulate_lm) against their plain PyTorch versions, on
 the card; the shared-bucket sorted MSM on the card against the Python-int
-oracle; and GM17 setup -> prove -> verify on a toy circuit on the card.
+oracle; the c = 8 sorted MSM at 2^17 points (Marlin's largest commitments),
+each of its kernel launches against its plain version and the whole MSM
+against the oracle; and GM17 setup -> prove -> verify on a toy circuit on the card.
 
 Marked `cuda`: every test skips where torch.cuda is unavailable (this is
 decided in a fixture, never at import). On a machine with an NVIDIA GPU
@@ -38,7 +40,7 @@ batched prove's shapes ((48, 2^15) shared and one row, (16, 2^15) full,
 strided and one row, (16, 27281) one row), and the C entry point's refusal
 of a width it has no instantiation of; the NTT at 2^1, 2^2 and 2^5
 (blocks of many tiles, padding past the batch), 2^10 (one pass), 2^11,
-the prove's 2^15 and 2^16 (two) and 2^21 (three), batches of 1, 2, 3, 16
+the prove's 2^15 and 2^16 (two), Marlin's 2^17 and 2^21 (three), batches of 1, 2, 3, 16
 and 48; the epilogue also at the shared-bucket h MSM's shape
 (one window of 1024 lanes); the matvec walk on toy and sha256-sized
 random plans at 1024 to 32768 lanes (runs that end at row changes and
@@ -574,7 +576,7 @@ def test_ereduce_entry_point_refuses_unknown_widths(dev):
 
 
 @pytest.mark.parametrize("logn,batch", [(1, 1), (2, 3), (5, 2), (10, 1), (10, 3), (11, 1), (15, 3), (15, 16),
-                                        (15, 48), (16, 1), (16, 2), (21, 1)])
+                                        (15, 48), (16, 1), (16, 2), (17, 1), (21, 1)])
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
 def test_ntt_kernel_equals_plain(dev, logn, batch, inverse):
     from zokrates_tpu_torch.kernels import ntt_pallas as nk
@@ -878,3 +880,50 @@ def test_gm17_prove_verify_on_card(dev):
     assert json.dumps(proof.to_json()) == json.dumps(on_cpu.to_json())
     proof.points["a"], proof.points["c"] = proof.points["c"], proof.points["a"]
     assert not gm17.verify(vk, proof)
+
+
+def test_msm_c8_at_2_17_kernels_equal_plain(dev, monkeypatch):
+    """The sorted MSM at N = 2^17 in default_config's c = 8, M1 = 1024,
+    lw2 = 128 configuration (the largest of Marlin's KZG commitments) on
+    the card: every walk, suffix and epilogue launch bit-equal to its plain
+    version on the same inputs, and the MSM equal to the oracle (points
+    drawn from 8 multiples of G, so the MSM is sum_k (sum s_i) * P_k)."""
+    from collections import Counter
+
+    from zokrates_tpu_torch.fields.limbs import ints_to_limbs
+
+    N = 1 << 17
+    rng = random.Random(17)
+    grp = g1_group("bn128")
+    base = [grp.generator() * rng.randrange(1, R_MOD) for _ in range(8)]
+    ks = [rng.randrange(8) for _ in range(N)]
+    sc = [rng.randrange(R_MOD) if i % 5 else 0 for i in range(N)]
+    f = field_ops(Q)
+    P128 = ms.pack_points(Q, f.encode([base[k].x for k in ks], device=dev), f.encode([base[k].y for k in ks],
+                                                                                       device=dev))
+    S = torch.as_tensor(ints_to_limbs(sc, 16).astype(np.int64)).to(dev)
+    cfg = ms.default_config(N)
+    assert (cfg.c, cfg.M1, cfg.lw2) == (8, 1024, 128)
+    checked = Counter()
+    plain = {"walk": ms.walk_plain, "suffix": ms.suffix_plain, "suffix_fold": ms.suffix_fold_plain}
+
+    def held(name, fn):
+        def wrapped(*args):
+            out = fn(*args)
+            ref = plain[name](*args)
+            got = out if isinstance(out, (tuple, list)) else (out,)
+            want = ref if isinstance(ref, (tuple, list)) else (ref,)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), name
+            checked[name] += 1
+            return out
+        return wrapped
+
+    for name in plain:
+        monkeypatch.setattr(ms, name, held(name, getattr(ms, name)))
+    jx, jy, jz = ms.msm_sorted_host(Q, R_MOD, P128, S, cfg)
+    assert checked["walk"] >= 2 and checked["suffix"] >= 1 and checked["suffix_fold"] >= 1
+    want = grp.zero()
+    for k in range(8):
+        want = want + base[k] * (sum(s for kk, s in zip(ks, sc) if kk == k) % R_MOD)
+    zi = pow(jz, -1, Q)
+    assert (jx * zi * zi % Q, jy * zi ** 3 % Q) == (want.x, want.y)

@@ -8,7 +8,9 @@ kernel, or on the CPU its plain version, one batched butterfly per stage).
 Coset transforms (for the Groth16 h(X) = (A·B - C)/Z on a coset of the
 vanishing domain) and the ifft's 1/n multiply by host tables of coset
 powers and by the n^-1 row through the elementwise product
-(kernels/pallas_field.emul).
+(kernels/pallas_field.emul). fft_ints / ifft_ints take and return host
+ints (Marlin's polynomial products and interpolations): canonical limbs
+uploaded, to Montgomery form and back by emul with the R^2 and 1 rows.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 
 from ..fields import params as P
 from ..fields.jfield import field_ops
-from ..fields.limbs import LIMB_BITS, ints_to_limbs
+from ..fields.limbs import LIMB_BITS, int_to_limbs, ints_to_limbs, limbs_to_ints
 from .ntt_pallas import fft_core
 from .pallas_field import emul
 
@@ -134,6 +136,33 @@ class Domain:
         coeffs = self.ifft(evals)
         ginv = pow(g, -1, self.p)
         return self._mul_table(coeffs, self._coset_table(ginv, coeffs.device))
+
+    # -- host helpers ------------------------------------------------------
+    def _row(self, value: int, device) -> torch.Tensor:
+        """The (nl,) canonical limbs of R^2 or 1, per device."""
+        return self._on(("row", value), device,
+                        lambda: torch.as_tensor(int_to_limbs(value, self.ops.nl).astype(np.int64), device=device))
+
+    def _ints(self, xs, inverse: bool, device) -> List[int]:
+        device = torch.device(device)
+        a = ints_to_limbs([x % self.p for x in xs], self.ops.nl).astype(np.int64)
+        a = self._mul_table(torch.as_tensor(a, device=device)[None], self._row(self.ops.spec.r2, device))
+        y = self.ifft(a) if inverse else self.fft(a)
+        return limbs_to_ints(self._mul_table(y, self._row(1, device))[0].cpu().numpy())
+
+    def fft_ints(self, xs, device="cuda") -> List[int]:
+        """Coefficients (ints, at most n, zero-padded to n) -> the n
+        evaluations on the domain, canonical ints."""
+        if len(xs) > self.n:
+            raise ValueError(f"{len(xs)} coefficients for a domain of {self.n}")
+        return self._ints(list(xs) + [0] * (self.n - len(xs)), False, device)
+
+    def ifft_ints(self, xs, device="cuda") -> List[int]:
+        """The n evaluations on the domain (ints) -> the n coefficients,
+        canonical ints."""
+        if len(xs) != self.n:
+            raise ValueError(f"{len(xs)} evaluations for a domain of {self.n}")
+        return self._ints(list(xs), True, device)
 
 
 @lru_cache(maxsize=None)
