@@ -120,9 +120,31 @@ Phases, each timed:
      BLS12-381 toy (the cube program, SRS of degree 64: setup, index, a
      proof that verifies, a forgery that does not, the MSM kernels at 12
      limbs only)
-  11. the kernels JSON line (each check record with its width in 32-bit
+  11. Nova: a SHA-256 hash chain on Pallas
+     (port_artifacts/sha256_chain_pallas.out.gz: the step u32[8] h ->
+     sha256(h), 26,557 constraints) as a user's nova-setup / nova-prove /
+     nova-prove --continue / nova-verify drive it: setup at full width
+     (65,536 hash-to-curve bases, host Python, run in a child process
+     started with the script, beside the earlier phases), 8 steps from
+     SHA-256's initial hash value and 2 more resuming that proof, the final
+     state against 10 rounds of hashlib.sha256, verify, the reference
+     tests' three tamperings rejected; each step split into witness, cross
+     term, commitments (the MSMs against their host preparation) and fold;
+     the launch counts set to 0 just before the first prove, every MSM
+     kernel and emul launched at 8 limbs only, no plain version on the
+     card and no Python G1 scalar multiply but the folds' two (NovaGuard);
+     one more step under torch.profiler (busy time, idle share, launches
+     recorded against the wrappers'); then every walk, suffix and epilogue
+     launch of the eighth step's two MSMs (com_w, com_t) against its plain
+     version on its own inputs, the same kernels at those shapes on random
+     tables with coordinates near q over Pallas and Vesta Fq, emul at Pasta
+     q, a full sorted MSM against the oracle on both curves' G1; and
+     compress / verify_compressed on the square step (z' = z*z + z) on
+     Pallas and Vesta, two tamperings rejected
+  12. the kernels JSON line (each check record with its width in 32-bit
      limbs and its curve; launches on every path, the Marlin path's also
-     per proof), the nvidia-smi line, and the result line.
+     per proof, the Nova path's also per step), the nvidia-smi line, and
+     the result line.
 
 Exits non-zero on any failure; with no CUDA device it raises before
 printing a result.
@@ -149,11 +171,13 @@ from __future__ import annotations
 
 import io
 import json
+import multiprocessing
 import os
 import random
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -232,9 +256,11 @@ class Points:
     Montgomery limbs): affine [x|y] rows, and Jacobian [X|Y|Z] rows with
     random Z for the same points and their negatives (so the complete add
     meets doublings and cancellations), plus one point at infinity (Z = 0,
-    X and Y arbitrary) as the last row."""
+    X and Y arbitrary) as the last row. With `near` (G1), a quarter of the
+    points have x within 2^8 of q (near_points) and a quarter of the
+    Jacobian rows Z within 2^8 of q."""
 
-    def __init__(self, ext: bool, rng: random.Random, n: int = 16, curve: str = "bn128"):
+    def __init__(self, ext: bool, rng: random.Random, n: int = 16, curve: str = "bn128", near: bool = False):
         import torch
         from zokrates_tpu_torch.ec.curve import g1_group, g2_group
         from zokrates_tpu_torch.ec.tower import Fq2
@@ -247,7 +273,8 @@ class Points:
         self.beta = grp.tower.beta - q if ext else None
         self.width = field_ops(q).nl // 2
         f = field_ops2(q, self.beta) if ext else field_ops(q)
-        pts = [grp.generator() * rng.randrange(1, grp.r) for _ in range(n)]
+        pts = near_points(grp, n // 4) if near else []
+        pts += [grp.generator() * rng.randrange(1, grp.r) for _ in range(n - len(pts))]
 
         def coord(v):
             return (v.c0, v.c1) if ext else v
@@ -264,7 +291,7 @@ class Points:
                 Y.append(coord(p.y * z * z * z))
                 Z.append(coord(z))
             else:
-                z = rng.randrange(1, q)
+                z = q - rng.randrange(1, 1 << 8) if near and len(Z) % 4 == 0 else rng.randrange(1, q)
                 X.append(p.x * z * z % q)
                 Y.append(p.y * z * z * z % q)
                 Z.append(z)
@@ -273,6 +300,23 @@ class Points:
         Z.append((0, 0) if ext else 0)
         self.jac = torch.cat([rows(X), rows(Y), rows(Z)], 1)
         self.inf_row = self.jac.shape[0] - 1
+
+
+def near_points(grp, n: int):
+    """n points of a G1 with x within 2^8 of q: x = q - k for the first k
+    where x^3 + a x + b is a square."""
+    from zokrates_tpu_torch.schemes.nova import _sqrt_mod
+
+    q, out, k = grp.q, [], 1
+    while len(out) < n:
+        x = q - k
+        y = _sqrt_mod(x * x % q * x + grp.a * x + grp.b, q)
+        if y is not None:
+            out.append(grp.point(x, y))
+        k += 1
+    if k > 1 << 8:
+        raise AssertionError(f"{n} points with x near q need k up to {k}")
+    return out
 
 
 def walk_inputs(pool: Points, K: int, L: int, mode: str, nrng: np.random.Generator):
@@ -413,20 +457,22 @@ def _record(name, field, mode, shape, got, want, ms_k, ms_p, mults, nbytes, widt
     return rec
 
 
-def check_kernels(shapes, dev, tag: str = "", seed: int = SEED, curve: str = "bn128"):
+def check_kernels(shapes, dev, tag: str = "", seed: int = SEED, curve: str = "bn128", near: bool = False):
     """Every kernel variant vs its plain version on `dev`, bit for bit, at
-    a path's shapes (main_path_shapes or gm17_shapes) over the curve's Fq
-    and Fq2 (8 32-bit limbs on BN254, 12 on the BLS12 curves), `tag`
-    appended to the walk and suffix labels. Returns the per-kernel check
-    records for the kernels JSON line."""
+    a path's shapes (main_path_shapes, gm17_shapes or nova_shapes) over the
+    curve's Fq and Fq2 (8 32-bit limbs on BN254 and the Pasta curves, 12 on
+    the BLS12 curves; Fq alone where shapes has no "fq2"), `tag` appended
+    to the walk and suffix labels, `near`: the G1 pool's coordinates near q
+    (Points). Returns the per-kernel check records for the kernels JSON
+    line."""
     import torch
     from zokrates_tpu_torch.kernels import msm_sorted as ms
 
     rng = random.Random(seed)
     nrng = np.random.default_rng(seed)
     records = {"walk_mixed": [], "walk_general": [], "suffix": [], "suffix_fold": []}
-    for ext in (False, True):
-        pool = Points(ext, rng, curve=curve)
+    for ext in [ext for ext in (False, True) if ("fq2" if ext else "fq") in shapes]:
+        pool = Points(ext, rng, curve=curve, near=near and not ext)
         q, beta, width = pool.q, pool.beta, pool.width
         fname = "Fq2" if ext else "Fq"
         fm = FQ2_MULS if ext else 1
@@ -592,8 +638,8 @@ def check_field_kernels(fr, dev, seed: int = SEED + 2, curve: str = "bn128", tag
         ms_k = cuda_ms(lambda: pf.ereduce_wide(p, t))
         records["ereduce_wide"].append(_record("ereduce_wide", "Fr", label, (B, L), (out,), (ref,),
                                                ms_k, ms_p, 2 * B * L, 2 * ELEM_BYTES * B * L, curve=curve))
-    n, ntt_cases = fr["ntt"]
-    dom = domain_for_curve(curve, n)
+    n, ntt_cases = fr.get("ntt", (0, []))
+    dom = domain_for_curve(curve, n) if ntt_cases else None
     for label, B, inverse in ntt_cases:
         label += tag
         x = fr_elems((B, n), nrng, p, near).to(dev)
@@ -729,10 +775,10 @@ def log_matvec(r1cs, dev, curve: str):
         del Z
 
 
-def check_msm_oracle(dev, N: int = 8192, curve: str = "bn128"):
+def check_msm_oracle(dev, N: int = 8192, curve: str = "bn128", g2: bool = True):
     """Full sorted MSM on the card (plans, walks, merges, suffix, host
-    combine) over the curve's G1 and G2 against the Python-int oracle:
-    points k_i*G, so the MSM is (sum k_i s_i) * G."""
+    combine) over the curve's G1 and (with `g2`) G2 against the Python-int
+    oracle: points k_i*G, so the MSM is (sum k_i s_i) * G."""
     import torch
     from zokrates_tpu_torch.ec.curve import g1_group, g2_group
     from zokrates_tpu_torch.ec.tower import Fq2
@@ -742,7 +788,7 @@ def check_msm_oracle(dev, N: int = 8192, curve: str = "bn128"):
     from zokrates_tpu_torch.kernels.msm_sorted import msm_sorted_host, pack_points, pack_points_g2
 
     rng = random.Random(SEED + 1)
-    for ext in (False, True):
+    for ext in (False, True) if g2 else (False,):
         grp = g2_group(curve) if ext else g1_group(curve)
         q, r = grp.q, grp.r
         beta = grp.tower.beta - q if ext else None
@@ -1130,6 +1176,16 @@ class PlainGuard:
             import torch
 
             if self.depth and any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                self.calls[name] = self.calls.get(name, 0) + 1
+            return fn(*args, **kw)
+        return wrapped
+
+    def _any(self, name, fn):
+        """Counts every call on a CUDA tensor, at any depth."""
+        def wrapped(*args, **kw):
+            import torch
+
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
                 self.calls[name] = self.calls.get(name, 0) + 1
             return fn(*args, **kw)
         return wrapped
@@ -1907,15 +1963,6 @@ class MarlinGuard(PlainGuard):
                            (ntt_pallas, ("fft_core_plain",))):
             self.patches += [(mod, name, self._any) for name in names]
 
-    def _any(self, name, fn):
-        def wrapped(*args, **kw):
-            import torch
-
-            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
-                self.calls[name] = self.calls.get(name, 0) + 1
-            return fn(*args, **kw)
-        return wrapped
-
     def _count(self, name, fn):
         def wrapped(*args, **kw):
             self.calls["G1 " + name] = self.calls.get("G1 " + name, 0) + 1
@@ -2304,18 +2351,476 @@ def run_marlin_bls12_381_toy(dev):
         raise AssertionError("a forged Marlin BLS12-381 proof verified")
 
 
+# ---------------------------------------------------------------------------
+# Nova: IVC over Pallas, a SHA-256 hash chain
+# ---------------------------------------------------------------------------
+
+NOVA_ARTIFACT = "sha256_chain_pallas.out.gz"
+NOVA_STEPS, NOVA_RESUMED = 8, 2  # nova-prove of 8 steps, then nova-prove --continue of 2
+NOVA_Z0 = [0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,  # SHA-256's initial hash value
+           0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19]
+# the kernels every Nova step launches (Pedersen commitments: the sorted
+# MSM, and emul taking the bases to Montgomery form)
+NOVA_KERNELS = ("walk_mixed", "walk_general", "suffix", "suffix_fold", "emul")
+NOVA_SPLIT = ("wall", "witness", "cross term", "commitments", "msm", "bases", "fold")
+# profiler kernel names of each wrapper's launches (suffix_fold: two a call)
+NOVA_PROFILED = {"walk": ("walk_kernel",), "suffix": ("suffix_kernel", "suffix_split_kernel"),
+                 "suffix_fold": ("fold_ladder_kernel", "fold_tree_kernel"), "emul": ("emul_kernel",)}
+
+
+def load_sha256_chain():
+    """The Nova step of a SHA-256 hash chain compiled for pallas
+    (port_artifacts/sha256_chain_pallas.out.gz: u32[8] h -> sha256(h), the
+    stdlib's one-block SHA-256 of a 32-byte message) and its R1CS."""
+    import gzip
+
+    from zokrates_tpu_torch.ir.r1cs import r1cs_from_prog
+    from zokrates_tpu_torch.ir.serialize import deserialize
+
+    with gzip.open(os.path.join(ROOT, "port_artifacts", NOVA_ARTIFACT), "rb") as f:
+        prog = deserialize(f.read())
+    return prog, r1cs_from_prog(prog)
+
+
+def nova_setup_job():
+    """nova.setup on the chain's step, as `nova-setup` runs it: (params,
+    seconds of the setup call). Host work only (65,536 hash-to-curve
+    bases), so main() runs it in a child process beside the earlier
+    phases."""
+    sys.path.insert(0, ROOT)
+    from zokrates_tpu_torch.schemes import nova
+
+    prog, r1cs = load_sha256_chain()
+    t0 = time.perf_counter()
+    params = nova.setup(prog, r1cs)
+    return params, time.perf_counter() - t0
+
+
+def sha256_chain(words, n: int):
+    """n rounds of hashlib's SHA-256 over the 32-byte big-endian state."""
+    import hashlib
+
+    for _ in range(n):
+        d = hashlib.sha256(b"".join(w.to_bytes(4, "big") for w in words)).digest()
+        words = [int.from_bytes(d[4 * i:4 * i + 4], "big") for i in range(8)]
+    return words
+
+
+class NovaGuard(PlainGuard):
+    """PlainGuard with nova.prove and nova.verify as its stages, and
+    besides, at any depth, every call of a kernel wrapper's plain version
+    on a CUDA tensor and every Python scalar multiply of a G1 point; the
+    two multiplies of each fold (nova._fold_instance: com_W + r*com_W2,
+    com_E + r*com_T) are counted apart, in `folds`."""
+
+    def __init__(self):
+        super().__init__()
+        from zokrates_tpu_torch.ec.curve import PointG1
+        from zokrates_tpu_torch.kernels import msm_sorted, pallas_field
+        from zokrates_tpu_torch.schemes import nova
+
+        self.folding = 0
+        self.folds = 0
+        self.patches += [(nova, "prove", self._stage), (nova, "verify", self._stage),
+                         (nova, "_fold_instance", self._fold),
+                         (PointG1, "__mul__", self._mul), (PointG1, "__rmul__", self._mul)]
+        for mod, names in ((msm_sorted, ("walk_plain", "suffix_plain", "suffix_fold_plain")),
+                           (pallas_field, ("emul_plain", "ereduce_wide_plain"))):
+            self.patches += [(mod, name, self._any) for name in names]
+
+    def _fold(self, name, fn):
+        def wrapped(*args, **kw):
+            self.folding += 1
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.folding -= 1
+        return wrapped
+
+    def _mul(self, name, fn):
+        def wrapped(*args, **kw):
+            if self.folding:
+                self.folds += 1
+            else:
+                self.calls["G1 " + name] = self.calls.get("G1 " + name, 0) + 1
+            return fn(*args, **kw)
+        return wrapped
+
+
+class NovaClock(Capture):
+    """While active, splits every step of nova.prove into its stages by
+    wall time: "witness" (the interpreter's execute, where a step starts),
+    "cross term" (nova._cross_term_relaxed: six host matvecs), and
+    "commitments" (nova._commit), of them "msm" (groth16._msm_packed_g1:
+    the plan, the kernels and the host combine; it ends in a host read,
+    so its wall time holds its device work) and "bases" (groth16._mont_elems:
+    the points' limbs on the host, their upload and emul); the rest of the
+    commitments is their host preparation, the rest of the step "fold"
+    (the full assignment, the transcript, the folds of the instance, W and
+    E). A step closes at the next one's witness or at end(). Also keeps
+    (Capture) the walk, suffix and epilogue calls of the two MSMs of step
+    PICK_STEP + 1 (picked["com_w"], picked["com_t"]) and their point
+    counts (n_points)."""
+
+    # the eighth step: on the SHA-256 chain from NOVA_Z0, com_t's MSM pads
+    # to 2^15 points from step 4 on (2^13 at step 2, 2^14 at step 3)
+    PICK_STEP = 7
+
+    def __init__(self):
+        super().__init__(self._keep)
+        self.steps = []
+        self.cur = self.tag = None
+        self.picked = {tag: {n: [] for n in self.NAMES} for tag in ("com_w", "com_t")}
+        self.n_points = {}
+
+    def _picking(self) -> bool:
+        return self.tag is not None and len(self.steps) == self.PICK_STEP
+
+    def _keep(self, name, args):
+        if self._picking():
+            self.picked[self.tag][name].append(args)
+
+    def end(self):
+        if self.cur is not None:
+            c = self.cur
+            c["wall"] = time.perf_counter() - self.t_step
+            c["fold"] = c["wall"] - c["witness"] - c["cross term"] - c["commitments"]
+            self.steps.append(c)
+            self.cur = None
+
+    def _timed(self, key, fn):
+        def wrapped(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                if self.cur is not None:
+                    self.cur[key] += time.perf_counter() - t0
+        return wrapped
+
+    def _step(self, fn):
+        def wrapped(*args, **kw):
+            self.end()
+            self.cur, self.commits, self.t_step = dict.fromkeys(NOVA_SPLIT, 0.0), 0, time.perf_counter()
+            return fn(*args, **kw)
+        return wrapped
+
+    def _commit(self, fn):
+        def wrapped(*args, **kw):
+            self.tag = ("com_w", "com_t")[self.commits]
+            self.commits += 1
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.tag = None
+        return wrapped
+
+    def _bases(self, fn):
+        def wrapped(q, ints, *args, **kw):
+            if self._picking():
+                self.n_points[self.tag] = len(ints)
+            return fn(q, ints, *args, **kw)
+        return wrapped
+
+    def __enter__(self):
+        from zokrates_tpu_torch.schemes import groth16, nova
+
+        self.clock_saved = [(nova.Interpreter, "execute", nova.Interpreter.execute),
+                            (nova, "_cross_term_relaxed", nova._cross_term_relaxed), (nova, "_commit", nova._commit),
+                            (groth16, "_msm_packed_g1", groth16._msm_packed_g1),
+                            (groth16, "_mont_elems", groth16._mont_elems)]
+        nova.Interpreter.execute = self._timed("witness", self._step(nova.Interpreter.execute))
+        nova._cross_term_relaxed = self._timed("cross term", nova._cross_term_relaxed)
+        nova._commit = self._timed("commitments", self._commit(nova._commit))
+        groth16._msm_packed_g1 = self._timed("msm", groth16._msm_packed_g1)
+        groth16._mont_elems = self._timed("bases", self._bases(groth16._mont_elems))
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        self.end()
+        for owner, name, fn in reversed(self.clock_saved):
+            setattr(owner, name, fn)
+
+    def report(self, steps):
+        """Mean split over `steps` (indices into self.steps), in ms, logged."""
+        mean = {k: sum(self.steps[i][k] for i in steps) / len(steps) * 1e3 for k in NOVA_SPLIT}
+        mean["host prep"] = mean["commitments"] - mean["msm"]
+        log(f"    {mean['wall']:8.1f} ms a step: witness {mean['witness']:.1f}, cross term (six host matvecs) "
+            f"{mean['cross term']:.1f}, commitments {mean['commitments']:.1f} (MSMs {mean['msm']:.1f}, host "
+            f"preparation {mean['host prep']:.1f}, of it the bases to Montgomery form {mean['bases']:.1f}), "
+            f"fold {mean['fold']:.1f}")
+        return mean
+
+
+def nova_shapes(picked):
+    """The kernels' shapes in a Nova step's two MSMs, read from their
+    captured calls (NovaClock.picked): {tag: shapes for check_kernels over
+    G1 only} with the mixed walk, the first merge walk, the suffix and the
+    epilogue of com_w and of com_t."""
+    out = {}
+    for tag, calls in picked.items():
+        mixed = next(a for a in calls["walk"] if a[3] == "mixed")
+        merge = next(a for a in calls["walk"] if a[3] == "general")
+        a = calls["suffix"][0][0]
+        out[tag] = {"fq": {"walk_mixed": tuple(mixed[1].shape), "walk_general": tuple(merge[1].shape),
+                           "suffix": (a.shape[0], a.shape[2]),
+                           "fold": {"MSM": tuple(calls["suffix_fold"][0][2:5])}}}
+    return out
+
+
+def nova_forgeries(nova, r1cs, params, proof, dev):
+    """The reference tests' tamperings of a proof must fail nova.verify:
+    the final state, one step's x, the final W."""
+    import copy
+
+    for name, edit in (("final state", lambda pr: pr.zN.__setitem__(0, pr.zN[0] ^ 1)),
+                       ("one step's x", lambda pr: pr.steps[1].x.__setitem__(0, (pr.steps[1].x[0] + 1) % 7)),
+                       ("final W", lambda pr: pr.final_W.__setitem__(0, pr.final_W[0] + 1))):
+        bad = copy.deepcopy(proof)
+        edit(bad)
+        t0 = time.perf_counter()
+        ok = nova.verify(r1cs, params, bad, device=dev)
+        log(f"  verify with a tampered {name}: {ok} ({(time.perf_counter() - t0) * 1e3:.1f} ms)")
+        if ok:
+            raise AssertionError(f"a Nova proof with a tampered {name} verified")
+
+
+def profile_nova_step(prog, r1cs, params, proof, dev):
+    """One more step (nova.prove resuming `proof`: the replay of its
+    records, then one step's witness, cross term, two commitments and
+    fold) under torch.profiler: wall time, the card's busy time and idle
+    share, the kernels that take most of it, and each kernel's launches as
+    the profiler recorded them against the wrappers' counts
+    (NOVA_PROFILED; suffix_fold's two kernels a call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from zokrates_tpu_torch.schemes import nova
+
+    torch.cuda.synchronize()
+    before = launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        nova.prove(prog, r1cs, params, proof.z0, 1, resume=proof, device=dev)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    after = launch_counts()
+    delta = {k: after.get(k, 0) - before.get(k, 0) for k in NOVA_KERNELS}
+    counted = {"walk": delta["walk_mixed"] + delta["walk_general"], "suffix": delta["suffix"],
+               "suffix_fold": 2 * delta["suffix_fold"], "emul": delta["emul"]}
+    dev_ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    profiled = {k: sum(e.count for e in dev_ev if any(n in e.key for n in names))
+                for k, names in NOVA_PROFILED.items()}
+    busy = sum(e.self_device_time_total for e in dev_ev) / 1e3
+    log(f"  profiled step: launches counted by the wrappers {counted}, recorded by the profiler {profiled}")
+    if profiled != counted:
+        log("  WARNING: the profiler missed launches of the step; its busy time is short by their device time")
+    res = {"wall_ms": wall, "busy_ms": busy if busy > 0 else None, "counted": counted, "profiled": profiled}
+    if busy <= 0:
+        log(f"  profiled step: {wall:.1f} ms wall; device busy time not measured "
+            "(the profiler recorded no device events)")
+        return res
+    res["idle_share"] = 1 - busy / wall
+    log(f"  profiled step: {wall:.1f} ms wall (the replay of {len(proof.steps)} records included), device busy "
+        f"{busy:.2f} ms (idle share {res['idle_share']:.4f}); top device time:")
+    for e in sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return res
+
+
+def square_step(curve: str):
+    """z' = z*z + z (one public argument, one return), the reference tests'
+    square_step_prog, and its R1CS."""
+    from zokrates_tpu_torch.ir.program import Constraint, LinComb, Parameter, Prog, QuadComb, var_new, var_public
+    from zokrates_tpu_torch.ir.r1cs import r1cs_from_prog
+
+    a, t, out = var_new(0), var_new(1), var_public(0)
+    stmts = [Constraint(QuadComb(LinComb.from_var(a), LinComb.from_var(a)), LinComb.from_var(t)),
+             Constraint(QuadComb(LinComb.one(), LinComb.from_var(t) + LinComb.from_var(a)), LinComb.from_var(out))]
+    prog = Prog(curve=curve, arguments=[Parameter(a, private=False)], return_count=1, statements=stmts)
+    return prog, r1cs_from_prog(prog)
+
+
+def run_nova_compress(dev):
+    """compress and verify_compressed on the card on the square step, on
+    Pallas and Vesta: 3 steps folded, compressed (the blinding pair's
+    three commitments on the card, the sumchecks and the two IPAs on the
+    host), verified (the IPAs' final MSMs on the card); a tampered final
+    IPA scalar and a tampered evaluation fail. Returns ms by curve."""
+    import dataclasses
+
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.schemes import nova
+    from zokrates_tpu_torch.schemes.ipa import IpaProof
+
+    out = {}
+    for curve in ("pallas", "vesta"):
+        p = P.SCALAR_FIELDS[curve].p
+        prog, r1cs = square_step(curve)
+        params = nova.setup(prog, r1cs)
+        proof = nova.prove(prog, r1cs, params, [3], 3, device=dev)
+        t0 = time.perf_counter()
+        cproof = nova.compress(r1cs, params, proof, device=dev)
+        t1 = time.perf_counter()
+        ok = nova.verify_compressed(r1cs, params, cproof, device=dev)
+        t2 = time.perf_counter()
+        out[curve] = {"compress_ms": (t1 - t0) * 1e3, "verify_compressed_ms": (t2 - t1) * 1e3}
+        log(f"  {curve} square step, 3 steps (n_half {len(params.ck_w)}, {len(params.ck_e)} rows): compress "
+            f"{(t1 - t0) * 1e3:.1f} ms, verify_compressed {(t2 - t1) * 1e3:.1f} ms: {ok}")
+        if not ok:
+            raise AssertionError(f"the compressed Nova proof on {curve} failed to verify")
+        w = cproof.ipa_w
+        vA, vB, vC, vE = cproof.evals
+        for name, bad in (("final IPA scalar", dataclasses.replace(cproof, ipa_w=IpaProof(w.Ls, w.Rs, (w.w0 + 1) % p))),
+                          ("evaluation vA", dataclasses.replace(cproof, evals=((vA + 1) % p, vB, vC, vE)))):
+            ok = nova.verify_compressed(r1cs, params, bad, device=dev)
+            log(f"  verify_compressed with a tampered {name}: {ok}")
+            if ok:
+                raise AssertionError(f"a compressed Nova proof with a tampered {name} verified")
+    return out
+
+
+def run_nova_path(dev, smi, records, pending_setup):
+    """Nova on the card, as a user's nova-setup / nova-prove / nova-prove
+    --continue / nova-verify would drive it: the SHA-256 chain's step at
+    full width, setup (pending_setup: the future of its result from the
+    child process main() started), NOVA_STEPS steps from NOVA_Z0 and
+    NOVA_RESUMED more resuming that proof, the final state against
+    hashlib, verify, the forgeries; the launch counts set to 0 just before
+    the first prove and read after the second, each step's split
+    (NovaClock), no plain version on the card and no Python G1 scalar
+    multiply but the folds' (NovaGuard); one more step under
+    torch.profiler; then the kernels of one step's two MSMs
+    (NovaClock.PICK_STEP) against their plain versions on their own
+    inputs, and at their shapes on random tables near q on Pallas and
+    Vesta, emul at Pasta q, full MSMs against the oracle on both curves
+    (appended to `records`); and compress on the square step. Returns the
+    launch counts over the 10 steps, per step, and the phase's results."""
+    import torch
+    from zokrates_tpu_torch.kernels import msm_sorted, pallas_field
+    from zokrates_tpu_torch.schemes import nova
+
+    log(f"== Nova: a SHA-256 hash chain on Pallas (port_artifacts/{NOVA_ARTIFACT})")
+    t0 = time.perf_counter()
+    prog, r1cs = load_sha256_chain()
+    nnz = [sum(len(row) for row in m) for m in (r1cs.A, r1cs.B, r1cs.C)]
+    log(f"  {r1cs.num_constraints} constraints, {r1cs.num_instance} instance and {r1cs.num_witness} witness "
+        f"variables, nonzeros {nnz} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    params, t_setup = pending_setup.result(timeout=900)
+    log(f"  setup: {len(params.ck_w)} + {len(params.ck_e)} + 1 hash-to-curve bases in {t_setup:.2f} s of host "
+        f"Python (a child process started at the script's start, beside the earlier phases; waited "
+        f"{time.perf_counter() - t0:.1f} s for it here); arguments at x{params.arg_pos}, returns at "
+        f"x{params.out_pos}")
+    if (params.arg_pos, params.out_pos) != (list(range(8)), list(range(8, 16))):
+        raise AssertionError("the chain's state is not at x[0..7] / x[8..15]")
+
+    clear_launches()
+    with NovaGuard() as guard:
+        with NovaClock() as clock, ShapeTally() as tally:
+            t0 = time.perf_counter()
+            first = nova.prove(prog, r1cs, params, NOVA_Z0, NOVA_STEPS, device=dev)
+            torch.cuda.synchronize()
+            clock.end()
+            t1 = time.perf_counter()
+            proof = nova.prove(prog, r1cs, params, NOVA_Z0, NOVA_RESUMED, resume=first, device=dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        launches = launch_counts()
+        widths = {**msm_sorted.WIDTH_LAUNCHES, **pallas_field.WIDTH_LAUNCHES}
+        ok = nova.verify(r1cs, params, proof, device=dev)
+        t3 = time.perf_counter()
+    steps = NOVA_STEPS + NOVA_RESUMED
+    log(f"  prove {NOVA_STEPS} steps: {(t1 - t0) * 1e3:.1f} ms; prove --continue {NOVA_RESUMED} steps (replay "
+        f"included): {(t2 - t1) * 1e3:.1f} ms; verify: {ok} ({(t3 - t2) * 1e3:.1f} ms); {smi}")
+    want = sha256_chain(NOVA_Z0, steps)
+    log(f"  z_{steps} = {[hex(v) for v in proof.zN]}; {steps} rounds of hashlib.sha256: equal={proof.zN == want}")
+    if proof.zN != want or proof.num_steps != steps:
+        raise AssertionError("the Nova chain's final state differs from the host's SHA-256 chain")
+    if not ok:
+        raise AssertionError("the Nova proof failed to verify")
+    mults = 2 * (NOVA_STEPS + NOVA_STEPS + NOVA_RESUMED + steps)  # prove, replay, prove, verify
+    log(f"  plain versions on the card and Python G1 scalar multiplies outside the folds: {guard.calls or 0}; "
+        f"multiplies in the folds {guard.folds} (2 a fold: {mults})")
+    if guard.calls or guard.folds != mults:
+        raise AssertionError(f"plain versions or Python scalar multiplies ran on the Nova path: {guard.calls}, "
+                             f"{guard.folds} in the folds")
+    per_step = {k: v / steps for k, v in launches.items()}
+    missing = [k for k in NOVA_KERNELS if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels {missing} were not launched by the Nova steps: {launches}")
+    other = {k: v for k, v in widths.items() if k[1] != 8}
+    if other:
+        raise AssertionError(f"Nova kernels launched at another width than 8 limbs: {widths}")
+    tally.report(steps, "Nova step")
+    log(f"  launches over {steps} steps (2 x {steps} - 1 MSMs: step 1's cross term is zero) {launches}, "
+        f"per step {per_step}; by (kernel, 32-bit limbs) {widths}")
+    log(f"  split of step 1 (no cross-term MSM):")
+    split1 = clock.report([0])
+    log(f"  split, mean of steps 2..{steps} ({smi}):")
+    split = clock.report(list(range(1, steps)))
+    for i, st in enumerate(clock.steps):
+        log(f"    step {i + 1}: " + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in st.items()) + " ms")
+    nova_forgeries(nova, r1cs, params, proof, dev)
+    prof = profile_nova_step(prog, r1cs, params, proof, dev)
+    result = {"setup_s": t_setup, "ms_step": split["wall"], "split_ms": split, "split_step1_ms": split1,
+              "prove_ms": (t1 - t0) * 1e3, "resume_ms": (t2 - t1) * 1e3, "verify_ms": (t3 - t2) * 1e3,
+              "profile": prof}
+
+    log("== Nova kernel checks (kernel vs plain version, bit-equal)")
+    t0 = time.perf_counter()
+    for tag, calls in clock.picked.items():
+        if not calls["walk"]:
+            raise AssertionError(f"no call of step {NovaClock.PICK_STEP + 1}'s {tag} MSM was captured")
+        for name, recs in check_picked_msm(calls, f"nova step {NovaClock.PICK_STEP + 1} {tag}",
+                                           curve="pallas").items():
+            records[name] += recs
+    shapes = nova_shapes(clock.picked)
+    n_t = clock.n_points["com_t"]
+    log(f"  step {NovaClock.PICK_STEP + 1}'s MSMs: points {clock.n_points}")
+    del clock
+    for i, curve in enumerate(("pallas", "vesta")):
+        for tag, sh in shapes.items():
+            for name, recs in check_kernels(sh, dev, f" nova {tag} {curve}", SEED + 60 + i, curve, near=True).items():
+                records[name] += recs
+        fr = {"emul": [(f"nova bases to Montgomery form, {curve}", "Fq", 1, n_t, "row")], "ereduce_wide": []}
+        for name, recs in check_field_kernels(fr, dev, SEED + 62 + i, curve, near=0.25).items():
+            records[name] += recs
+        check_msm_oracle(dev, n_t, curve, g2=False)
+    log(f"  checks: {time.perf_counter() - t0:.1f} s")
+
+    log("== Nova compress on the square step (Pallas, Vesta)")
+    result["compress"] = run_nova_compress(dev)
+    return launches, per_step, result
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
     sys.path.insert(0, ROOT)
+    dev = torch.device("cuda")
+    t_all = time.perf_counter()
+    # Nova's setup is host Python alone: it runs in a child process beside
+    # the phases before Nova's, which takes it out of the script's wall time
+    # (a child that dies fails the result with BrokenProcessPool)
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as nova_setup:
+        pending_setup = nova_setup.submit(nova_setup_job)
+        try:
+            run_all(dev, t_all, pending_setup)
+        finally:
+            pending_setup.cancel()
+
+
+def run_all(dev, t_all, pending_setup):
+    """Every phase, then the kernels line, the card's line and the result."""
+    import torch
     from zokrates_tpu_torch.kernels import cuda
     from zokrates_tpu_torch.native import available as native_available
     from zokrates_tpu_torch.schemes import groth16 as g
 
-    dev = torch.device("cuda")
-    t_all = time.perf_counter()
     log("== device")
     smi = nvidia_smi()
     log(f"  {smi}")
@@ -2415,6 +2920,11 @@ def main():
     log(f"  Marlin phase: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"marlin": marlin_result}), flush=True)
 
+    t0 = time.perf_counter()
+    launches_nova, nova_per_step, nova_result = run_nova_path(dev, smi, records, pending_setup)
+    log(f"  Nova phase: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"nova": nova_result}), flush=True)
+
     kernels = []
     for name, recs in records.items():
         head = next(r for r in recs if (r["field"], r["mode"]) == MAIN_VARIANT[name])
@@ -2430,6 +2940,8 @@ def main():
             "launches_gm17_bls12_381": launches_gm17_bls.get(name, 0),
             "launches_marlin": launches_marlin.get(name, 0),
             "launches_marlin_per_proof": marlin_per_proof.get(name, 0),
+            "launches_nova": launches_nova.get(name, 0),
+            "launches_nova_per_step": nova_per_step.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None,

@@ -5,7 +5,12 @@ mixed_add_lm and accumulate_lm) against their plain PyTorch versions, on
 the card; the shared-bucket sorted MSM on the card against the Python-int
 oracle; the c = 8 sorted MSM at 2^17 points (Marlin's largest commitments),
 each of its kernel launches against its plain version and the whole MSM
-against the oracle; and GM17 setup -> prove -> verify on a toy circuit on the card.
+against the oracle; GM17 setup -> prove -> verify on a toy circuit on the card;
+and Nova's commitments at Pasta q (Pallas and Vesta Fq, 8 limbs, a quarter
+of the points with x within 2^8 of q and half the Jacobian Z within 2^8 of
+q): the walk in its three modes at every S, the suffix at k = 1 and k > 1,
+the epilogue and emul against their plain versions, and groth16._msm_g1 at
+2^15 points against the oracle.
 
 Marked `cuda`: every test skips where torch.cuda is unavailable (this is
 decided in a fixture, never at import). On a machine with an NVIDIA GPU
@@ -927,3 +932,199 @@ def test_msm_c8_at_2_17_kernels_equal_plain(dev, monkeypatch):
         want = want + base[k] * (sum(s for kk, s in zip(ks, sc) if kk == k) % R_MOD)
     zi = pow(jz, -1, Q)
     assert (jx * zi * zi % Q, jy * zi ** 3 % Q) == (want.x, want.y)
+
+
+# ---------------------------------------------------------------------------
+# Nova's commitments: the sorted MSM's kernels and emul at Pasta q
+# ---------------------------------------------------------------------------
+
+PASTA = ("pallas", "vesta")
+
+
+def _rows_pasta(curve, seed, n=8):
+    """G1 rows of a Pasta curve (255-bit q, 8 limbs) near q: affine rows of
+    n points, a quarter of them with x within 2^8 of q, and their
+    negatives; Jacobian rows of the same with Z within 2^8 of q on every
+    other row, a point at infinity last. Returns (affine, jac, q)."""
+    from zokrates_tpu_torch.schemes.nova import _sqrt_mod
+
+    rng = random.Random(seed)
+    grp = g1_group(curve)
+    q = grp.q
+    pts, k = [], 1
+    while len(pts) < n // 4:
+        x = q - k
+        y = _sqrt_mod(x * x % q * x + grp.a * x + grp.b, q)
+        if y is not None:
+            pts.append(grp.point(x, y))
+        k += 1
+    assert k < 1 << 8
+    pts += [grp.generator() * rng.randrange(1, grp.r) for _ in range(n - len(pts))]
+    pts += [-p for p in pts]
+    f = field_ops(q)
+
+    def enc(vals):
+        return f.encode(vals).reshape(len(vals), -1).to(torch.int32)
+
+    X, Y, Z = [], [], []
+    for i, p in enumerate(pts):
+        z = q - rng.randrange(1, 1 << 8) if i % 2 == 0 else rng.randrange(1, q)
+        X.append(p.x * z * z % q)
+        Y.append(p.y * z ** 3 % q)
+        Z.append(z)
+    X.append(pts[0].x)
+    Y.append(pts[0].y)
+    Z.append(0)
+    affine = torch.cat([enc([p.x for p in pts]), enc([p.y for p in pts])], 1)
+    return affine, torch.cat([enc(X), enc(Y), enc(Z)], 1), q
+
+
+@pytest.mark.parametrize("mode,safe", [("mixed", False), ("mixed", True), ("general", True)],
+                         ids=["mixed-unsafe", "mixed-safe", "general"])
+@pytest.mark.parametrize("curve", PASTA)
+def test_walk_kernel_pasta_at_every_split(dev, curve, mode, safe):
+    """The walk at Pallas and Vesta Fq (8 limbs) through the wrapper (one
+    launch, counted) and through its C entry point at S = 1, 3, 7, 16 and
+    K, each bit-equal to walk_plain, over the flag patterns of
+    test_torch_walk_split; a doubling planted in lane 0."""
+    from test_torch_walk_split import _patterns
+
+    from zokrates_tpu_torch.kernels import cuda
+
+    K, L = 24, 160
+    affine, jac, q = _rows_pasta(curve, seed=90)
+    rng = np.random.default_rng(91)
+    flags = ((rng.random((K, L)) < 0.15).astype(np.int32) | ((rng.random((K, L)) < 0.1).astype(np.int32) << 1))
+    cols = list(_patterns(K, rng).values())
+    flags[:, 1 : 1 + len(cols)] = np.stack(cols, 1)
+    src = affine if mode == "mixed" else jac
+    idx = rng.integers(0, src.shape[0], (K, L))
+    flags[:2, 0] = 0
+    idx[:2, 0] = 0
+    qrows = src[torch.as_tensor(idx)].permute(0, 2, 1).contiguous().to(dev)
+    fl = torch.as_tensor(flags).to(dev)
+    ref_out, ref_coll = ms.walk_plain(qrows, fl, q, mode, safe)
+    assert bool(ref_coll[0]) == (mode == "mixed" and not safe)
+    before = ms.LAUNCHES["walk_" + mode]
+    out, coll = ms.walk(qrows, fl, q, mode, safe)
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["walk_" + mode] == before + 1
+    assert torch.equal(out, ref_out) and torch.equal(coll, ref_coll)
+    lib = cuda.load()
+    nl, pl, one, n0, babs = cuda.field_params(q, None)
+    assert nl == 8
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for S in (1, 3, 7, 16, K):
+        out = torch.full_like(ref_out, -1)
+        coll = torch.zeros(L, dtype=torch.int32, device=dev)
+        rc = lib.zkt_msm_walk(qrows.data_ptr(), fl.data_ptr(), out.data_ptr(), coll.data_ptr(), K, L, S,
+                              nl, 0, int(mode == "mixed"), int(safe), pl, one, n0, babs, stream)
+        cuda.check(rc, "walk")
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref_out), f"S={S}"
+        assert torch.equal(coll, ref_coll), f"S={S}"
+
+
+@pytest.mark.parametrize("Lb", [1, 3, 32])
+@pytest.mark.parametrize("curve", PASTA)
+def test_suffix_kernel_pasta_at_every_split(dev, curve, Lb):
+    """The suffix walk at Pasta q on 203 lanes through the wrapper (k =
+    suffix_split(Lb, M): 1 at Lb = 1 and 3, 32 at Lb = 32) and through its C
+    entry point at every k that divides Lb, each bit-equal to suffix_plain
+    at that k; lanes 0-2 planted: the same point in both slots, all at
+    infinity, A = -B."""
+    from zokrates_tpu_torch.kernels import cuda
+
+    _, jac, q = _rows_pasta(curve, seed=92)
+    inf, n = jac.shape[0] - 1, 8
+    rng = np.random.default_rng(93 + Lb)
+    M = 203
+    ia = rng.integers(0, jac.shape[0], (Lb, M))
+    ib = rng.integers(0, jac.shape[0], (Lb, M))
+    ia[:, 0] = ib[:, 0] = 2
+    ia[:, 1] = ib[:, 1] = inf
+    ia[:, 2] %= n
+    ib[:, 2] = ia[:, 2] + n
+    a = jac[torch.as_tensor(ia)].permute(0, 2, 1).contiguous().to(dev)
+    b = jac[torch.as_tensor(ib)].permute(0, 2, 1).contiguous().to(dev)
+    want = {k: ms.suffix_plain(a, b, q, None, k) for k in (1, 2, 4, 8, 16, 32) if Lb % k == 0}
+    before = ms.LAUNCHES["suffix"]
+    out = ms.suffix(a, b, q)
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["suffix"] == before + 1
+    assert torch.equal(out, want[ms.suffix_split(Lb, M)])
+    lib = cuda.load()
+    nl, pl, one, n0, babs = cuda.field_params(q, None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for k, ref in want.items():
+        got = torch.full_like(out, -1)
+        rc = lib.zkt_msm_suffix(a.data_ptr(), b.data_ptr(), got.data_ptr(), Lb, M, k, nl, 0, pl, one, n0,
+                                babs, stream)
+        cuda.check(rc, "suffix")
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), f"k={k}"
+
+
+@pytest.mark.parametrize("lw,W,L", [(1, 3, 5), (128, 32, 1), (1024, 1, 32)])
+@pytest.mark.parametrize("curve", PASTA)
+def test_suffix_fold_kernel_pasta_equals_plain(dev, curve, lw, W, L):
+    """The epilogue at Pasta q, (128, 32, 1) being a Nova commitment's (32
+    windows of 128 lanes), with about a fifth of acc and tot at infinity."""
+    _, jac, q = _rows_pasta(curve, seed=94)
+    rng = np.random.default_rng(95 + lw)
+    inf = jac.shape[0] - 1
+    idx = rng.integers(0, jac.shape[0], (2, W * lw))
+    idx[rng.random((2, W * lw)) < 0.2] = inf
+    out6 = torch.cat([jac[torch.as_tensor(idx[0])], jac[torch.as_tensor(idx[1])]], 1).T.contiguous().to(dev)
+    before = ms.LAUNCHES["suffix_fold"]
+    got = ms.suffix_fold(out6, q, W, lw, L)
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["suffix_fold"] == before + 1
+    for g, w in zip(got, ms.suffix_fold_plain(out6, q, W, lw, L)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kind,B,L", [("row", 1, 32768), ("row", 1, 1000), ("shared", 3, 1000)])
+@pytest.mark.parametrize("curve", PASTA)
+def test_emul_kernel_pasta_equals_plain(dev, curve, kind, B, L):
+    """emul at Pasta q, (1, 32768) by one row being _mont_elems' conversion
+    of a Nova commitment's bases, with a quarter of a's elements within 2^8
+    of q (and b = q - 1 for the row)."""
+    from zokrates_tpu_torch.fields.limbs import ints_to_limbs
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+
+    q = g1_group(curve).q
+    a, b = _emul_operands(kind, B, L, 96, q, dev)
+    near = np.random.default_rng(97).random((B, L)) < 0.25
+    k = np.random.default_rng(98).integers(1, 1 << 8, int(near.sum()))
+    a[torch.as_tensor(near)] = torch.as_tensor(ints_to_limbs([q - int(v) for v in k], 16).astype(np.int64)).to(dev)
+    if kind == "row":
+        b = torch.as_tensor(ints_to_limbs([q - 1], 16).astype(np.int64)).to(dev).expand(L, 16)
+    before = pf.LAUNCHES["emul"]
+    out = pf.emul(q, a, b)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES["emul"] == before + 1
+    assert torch.equal(out, pf.emul_plain(q, a, b))
+
+
+@pytest.mark.parametrize("curve", PASTA)
+def test_msm_g1_pasta_at_2_15_equals_oracle(dev, curve):
+    """groth16._msm_g1, Nova's commitment entry point, at 2^15 points on the
+    card against the oracle: points drawn from 8 multiples of G, a third of
+    the scalars 0 or 1 (a step's witness bits), the rest full (a cross
+    term), so the MSM is sum_k (sum s_i) * P_k."""
+    from zokrates_tpu_torch.schemes import groth16 as g
+
+    rng = random.Random(99)
+    grp = g1_group(curve)
+    N = 1 << 15
+    base = [grp.generator() * rng.randrange(1, grp.r) for _ in range(8)]
+    ks = [rng.randrange(8) for _ in range(N)]
+    sc = [rng.randrange(2) if i % 3 == 0 else rng.randrange(grp.r) for i in range(N)]
+    before = ms.LAUNCHES["walk_mixed"]
+    got = g._msm_g1(curve, [(base[k].x, base[k].y) for k in ks], sc, device=dev)
+    assert ms.LAUNCHES["walk_mixed"] > before
+    want = grp.zero()
+    for k in range(8):
+        want = want + base[k] * (sum(s for kk, s in zip(ks, sc) if kk == k) % grp.r)
+    assert (got.x, got.y) == (want.x, want.y)
