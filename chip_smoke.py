@@ -15,8 +15,9 @@ Phases, each timed:
      inputs (real curve points; doubling, cancellation and infinity cases
      included): the walk in modes mixed-unsafe, mixed-safe and general,
      the suffix walk and its epilogue (suffix_fold), each over Fq and Fq2,
-     over G1 also at the shared-bucket h MSM's shapes and the a/b1/l
-     MSM's (three queries on one plan); each walk shape's sub-chunk
+     over G1 also at the epilogue's dense h MSM shape and at the a/b1/l
+     MSM's shapes (three queries on one plan; the shared-bucket h MSM's
+     kernels are held on a proof's own plan in phase 4); each walk shape's sub-chunk
      length S and thread count are logged, and each suffix shape's
      sub-chunks a lane k (msm_sorted.suffix_split) and thread count;
      emul, ereduce_wide, the NTT and the matvec walk mulacc_walk (B = 1 and
@@ -48,8 +49,10 @@ Phases, each timed:
      version at that k)
   5. batched path, as bench.py measures: 16 distinct sha256 witnesses made
      by the port's interpreter (preimage [16b, ..., 16b + 15]), one
-     warm-up prove_batch and 2 timed ones; every proof of the last batch
-     verifies, proofs 0 and 1 equal prove() of the same witness with the
+     warm-up prove_batch and 2 timed ones; all 16 proofs of the last
+     batch verify in one pairing product with random weights (verify_all;
+     the same batch with one proof's C swapped must fail), all 16 are
+     distinct, proofs 0 and 1 equal prove() of the same witness with the
      same r, s byte for byte, the launch counts (set to 0 before the
      first batch) are above 0, and no plain version runs on the card;
      one more batch under torch.profiler gives the card's busy time;
@@ -60,15 +63,18 @@ Phases, each timed:
      witnesses from the port's interpreter (preimage [16b, ..., 16b + 15];
      witness 0 proves on the main path); every kernel of its prove against
      its plain version at the prove's shapes, as in phase 3: the walks,
-     suffix and epilogue at 12 limbs over Fq and Fq2 (h16, dense h, a/b1/l
-     and b2 shapes), emul, ereduce_wide, the NTT at (3, 2^15) both ways and
+     suffix and epilogue at 12 limbs over Fq and Fq2 (dense h, a/b1/l and
+     b2 shapes, the h16 epilogue), emul, ereduce_wide, the NTT at (3, 2^15) both ways and
      mulacc_walk at B = 1 and 16 on its 255-bit r, a quarter of the values
      within 2^8 of r; full sorted MSMs against the oracle over G1 and G2 of
      BLS12-381 and BLS12-377; setup (with h16_p128; the b2 query keeps
      its coordinates, packed on the card into rows of 144 words), 3 proofs
      verified, a tampered proof and a wrong public input rejected; the h
      MSM shared-bucket against dense, and its h16 suffix on a proof's own
-     table at every k, as in phase 4; then prove_batch, the matvec's
+     table at every k and its h16 merge walk on the proof's own plan, as
+     in phase 4, and its h16 mixed walk on two blocks of one sub-chunk of
+     that plan (walk_blocks: its plain version takes 30-45 s for the whole
+     walk at 12 limbs); then prove_batch, the matvec's
      steps and the h stage's peak allocation as in phase 5. The
      launch counts are also tallied by limb width: every MSM kernel
      launches at 12 limbs there, at no other width
@@ -95,10 +101,9 @@ Phases, each timed:
      at the queries' 2^16 rows, over Fq and Fq2; the NTT at (2, 2^16)
      and (1, 2^16) both ways; emul at the h stage's shapes and at the
      queries' conversion to Montgomery form
-  9. the standalone point kernels mixed_add_lm (N = 2^16) and
-     accumulate_lm (16 buckets, 16 steps, 2^14 lanes), which no path
-     calls, against their plain versions from real curve points with
-     every edge case (P at infinity, P == Q, P == -Q, digit 0, digits >=
+  9. the point kernels mixed_add_lm (N = 2^16) and accumulate_lm (16
+     buckets, 16 steps, 2^14 lanes) on random inputs, against their plain
+     versions from real curve points with every edge case (P at infinity, P == Q, P == -Q, digit 0, digits >=
      n_buckets, buckets hit several times); and the throughput probe: the
      card's rate of 32-bit IMAD and of 8-limb CIOS products
   10. Marlin: the universal setup of the CLI's default size (2^17 powers
@@ -141,8 +146,33 @@ Phases, each timed:
      q, a full sorted MSM against the oracle on both curves' G1; and
      compress / verify_compressed on the square step (z' = z*z + z) on
      Pallas and Vesta, two tamperings rejected
-  12. the kernels JSON line (each check record with its width in 32-bit
-     limbs and its curve; launches on every path, the Marlin path's also
+  12. the Groth16 phase-2 ceremony, as the CLI's mpc init / contribute /
+     beacon / verify / export commands drive it (run_mpc_path): the bellman
+     ceremony on BN254 sha256 (a phase1radix for its 2^15 domain generated
+     on the card, the file written and read back byte-equal, initialize,
+     two contributions and a beacon, mpc.params written and read back
+     byte-equal, verify giving the three hashes, export, prove_batch of the
+     16 witnesses with the exported key, every proof verified (verify_all),
+     and four forgeries rejected: a tampered h point, a swapped delta_g1, a wrong
+     cs_hash, a PublicKey with another r_delta); schemes/mpc on BLS12-381
+     sha256 (init: mpc.from_keys on the BLS12-381 main path's key pair;
+     two contributions and a beacon, verify, export, 3
+     proofs that verify, a tampered h query rejected); the bellman
+     ceremony on BLS12-381's cube toy; each step timed. The launch counts
+     are set to 0 just before and read after: mixed_add_lm (the
+     contributions' and the terms' ladders) and accumulate_lm (the column
+     sums) must launch at 8 and 12 limbs, no plain version may run on the
+     card, and the Python G1/G2 scalar multiplies inside initialize,
+     contribute and verify must be the contributions' named few
+     (MpcGuard). Then 64 sampled points of every contribution against the
+     host's k * P, 64 sampled columns of each accumulator of the BN254 and
+     the toy initialize against the host's sums (their terms rebuilt from
+     the r1cs and the radix; a column without terms must be None), and each point kernel's
+     widest call at each width and stage against its plain version on the
+     same inputs (bit-equal, timed, with its bound)
+  13. the kernels JSON line (each check record with its width in 32-bit
+     limbs and its curve; launches on every path: "launches" the main
+     path's, for the point kernels the ceremony's; the Marlin path's also
      per proof, the Nova path's also per step), the nvidia-smi line, and
      the result line.
 
@@ -216,22 +246,20 @@ REPLACES = {
     "mixed_add_lm": ("zkt_point", "zokrates_tpu/kernels/pallas_field.py:296"),
     "accumulate_lm": ("zkt_point", "zokrates_tpu/kernels/pallas_field.py:404"),
 }
-# kernels no path of either package calls: checked against their plain
-# versions only, 0 launches on every path
-CHECKED_ONLY = ("mixed_add_lm", "accumulate_lm")
 # the kernels every GM17 prove launches (no matvec walk, no lazy reduction)
 GM17_KERNELS = ("walk_mixed", "walk_general", "suffix", "suffix_fold", "ntt", "emul")
 # the variant whose time stands for each kernel in the kernels line: the
 # one the main path launches on the most data (G1; the shared-bucket h
-# MSM's walks and epilogue on a proof's own plan, its suffix on a random
-# table at the same shape; the batch's coset product (48, 2^15) and the
+# MSM's walks, suffix and epilogue on a proof's own plan and table; the batch's coset product (48, 2^15) and the
 # walk matvec's row sums at B = 16, the batch of 3 forward transforms, the
-# batched matvec walk)
+# batched matvec walk); for the point kernels, whose path is the
+# ceremony's: a BN254 sha256 contribution's ladder step and initialize's
+# column sums, on their own inputs
 MAIN_VARIANT = {"walk_mixed": ("Fq", "mixed-safe h16 real"), "walk_general": ("Fq", "general h16 real"),
-                "suffix": ("Fq", "fold=False h16"), "suffix_fold": ("Fq", "h16 MSM real"),
+                "suffix": ("Fq", "fold=False h16 real"), "suffix_fold": ("Fq", "h16 MSM real"),
                 "emul": ("Fr", "B=16 coset"), "ereduce_wide": ("Fr", "B=16 row sums"),
                 "ntt": ("Fr", "forward x3"), "mulacc_walk": ("Fr", f"B={BATCH}"),
-                "mixed_add_lm": ("Fq", "N=2^16"), "accumulate_lm": ("Fq", "16x16, 2^14 lanes")}
+                "mixed_add_lm": ("Fq", "mpc contribution"), "accumulate_lm": ("Fq", "mpc column sums")}
 
 
 def log(msg: str) -> None:
@@ -1323,7 +1351,7 @@ def check_launches(launches, runs: int, path: str):
     """Every kernel launched; the matvec walk at least once a prove call;
     each suffix launch followed by its epilogue."""
     for name in REPLACES:
-        if name not in CHECKED_ONLY and launches.get(name, 0) <= 0:
+        if name not in MPC_KERNELS and launches.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} was not launched on {path}: {launches}")
     if launches["mulacc_walk"] < runs:
         raise AssertionError(f"mulacc_walk launched {launches['mulacc_walk']} times in {runs} prove calls")
@@ -1564,20 +1592,42 @@ def check_suffix_real(args, tag: str = "", width: int = 8, curve: str = "bn128",
     return rec
 
 
-def check_walk_call(args, label: str, width: int = 8, curve: str = "bn128", sweep: bool = False):
+def check_walk_call(args, label: str, width: int = 8, curve: str = "bn128", sweep: bool = False,
+                    blocks: int = 0):
     """One captured walk call (`args` as the MSM passed them) against its
     plain version, bit for bit, timed; with `sweep`, also at every S
-    (sweep_walk_split). G1: a coordinate's rows are its limbs."""
+    (sweep_walk_split); with `blocks` (a safe or general walk), the plain
+    version only on walk_blocks' two blocks of max(S, blocks) positions, S
+    the call's sub-chunk length (it steps one position at a time, 60-90 ms
+    a position at 12 limbs on the card, and cannot take a whole h16 walk
+    in the time): the kernel's outputs of the whole call at those
+    positions and lanes, and its collision flags, all zero; the kernel
+    time and the bound stay the whole call's. G1: a coordinate's rows are
+    its limbs."""
     import torch
     from zokrates_tpu_torch.kernels import msm_sorted as ms
 
     qrows, flags, p, mode, safe, beta = args
     K, L = flags.shape
+    launch = walk_launch(K, L)
     out = ms.walk(*args)
     torch.cuda.synchronize()
-    ref, ms_p = host_ms(lambda: ms.walk_plain(*args))
-    ms_k = cuda_ms(lambda: ms.walk(*args))
     fl = flags.cpu().numpy()
+    if blocks:
+        if mode == "mixed" and not safe:
+            raise ValueError("the block check takes a safe or general walk")
+        checked = walk_blocks(fl, launch["S"], max(launch["S"], blocks))
+        got, want, ms_p = [out[1]], [torch.zeros_like(out[1])], 0.0
+        for k0, k1, lanes in checked:
+            li = slice(None) if lanes is None else torch.as_tensor(lanes, device=qrows.device)
+            qb, fb = qrows[k0:k1][..., li].contiguous(), flags[k0:k1][:, li].contiguous()
+            (ref, _), t = host_ms(lambda: ms.walk_plain(qb, fb, p, mode, safe, beta))
+            ms_p += t
+            got.append(out[0][k0:k1][..., li])
+            want.append(ref)
+    else:
+        got, (want, ms_p) = out, host_ms(lambda: ms.walk_plain(*args))
+    ms_k = cuda_ms(lambda: ms.walk(*args))
     qinf = np.zeros(fl.shape, bool)
     if mode == "general":
         en = nl_of(p)
@@ -1585,13 +1635,37 @@ def check_walk_call(args, label: str, width: int = 8, curve: str = "bn128", swee
     mults = walk_adds(fl, qinf) * (MIXED_MULS if mode == "mixed" else GENERAL_MULS)
     nbytes = 4 * (qrows.numel() + flags.numel() + sum(t.numel() for t in out))
     label = ("general" if mode == "general" else mode + ("-safe" if safe else "-unsafe")) + " " + label
-    rec = _record("walk", "Fq", label, (K, L), out, ref, ms_k, ms_p, mults, nbytes, width, curve)
+    rec = _record("walk", "Fq", label, (K, L), got, want, ms_k, ms_p, mults, nbytes, width, curve)
+    if blocks:
+        rec["plain_checked"] = [{"positions": [k0, k1], "lanes": L if lanes is None else int(lanes.size)}
+                                for k0, k1, lanes in checked]
+        log(f"    plain version on positions and lanes {rec['plain_checked']} of the call")
     rec["collisions"] = int(out[1].sum())
     rec["flushes"] = int(np.count_nonzero(fl & 1))
-    rec.update(walk_launch(K, L))
+    rec.update(launch)
     if sweep:
         rec["sweep"] = sweep_walk_split(args, out)
     return rec
+
+
+def walk_blocks(flags: np.ndarray, S: int, n: int):
+    """Two blocks of n positions on which a walk's plain version reproduces
+    the kernel's outputs without the positions before them: positions
+    [0, n) on every lane, and [k0, k0 + n) from the middle sub-chunk
+    boundary k0 (sub-chunks of S positions; or the first position after it
+    where any lane qualifies) on the lanes whose accumulator is at infinity
+    there, those that flush at k0 - 1 and do not skip k0 (an add to the
+    point at infinity returns the incoming point, whatever the
+    accumulator's x and y). Returns [(k0, k1, lanes or None for all)]."""
+    K, _ = flags.shape
+    n = min(n, K)
+    blocks = [(0, n, None)]
+    for k0 in range(max(S * (-(-K // S) // 2), n), K - n + 1):
+        lanes = np.flatnonzero(((flags[k0 - 1] & 1) != 0) & ((flags[k0] & 2) == 0))
+        if lanes.size:
+            blocks.append((k0, k0 + n, lanes))
+            break
+    return blocks
 
 
 def check_fold_call(args, label: str, width: int = 8, curve: str = "bn128"):
@@ -1630,11 +1704,71 @@ def check_h16_real(calls):
     return records
 
 
+def verify_all(vk, proofs, seed: int) -> bool:
+    """Every proof of `proofs` against `vk` in one pairing product, with
+    random 128-bit weights w_i: prod e(-w_i A_i, B_i) e(sum w_i alpha,
+    beta) e(sum w_i vk_x_i, gamma) e(sum w_i C_i, delta) == 1, vk_x_i the
+    proof's combination of gamma_abc by its inputs (groth16.verify's
+    equation for each proof, combined). One Miller loop a proof and three
+    more, one final exponentiation; a set holding a false proof passes
+    with probability about 2^-128."""
+    from zokrates_tpu_torch.ec.pairing import pairing_product_is_one
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.schemes.types import fr_from_json, g1_from_json, g2_from_json
+
+    curve = vk.curve
+    r_ord = P.SCALAR_FIELDS[curve].p
+    rng = random.Random(seed)
+    w = [rng.getrandbits(128) | 1 for _ in proofs]
+    abc = [g1_from_json(x, curve) for x in vk.data["gamma_abc"]]
+    coef = [sum(w) % r_ord] + [0] * (len(abc) - 1)  # of gamma_abc: sum_i w_i (1, inputs_i)
+    pairs = []
+    c_sum = None
+    for wi, pr in zip(w, proofs):
+        ins = [fr_from_json(x, curve) for x in pr.inputs]
+        if len(ins) + 1 != len(abc):
+            return False
+        for j, v in enumerate(ins):
+            coef[j + 1] = (coef[j + 1] + wi * v) % r_ord
+        pairs.append((-(g1_from_json(pr.points["a"], curve) * wi), g2_from_json(pr.points["b"], curve)))
+        c = g1_from_json(pr.points["c"], curve) * wi
+        c_sum = c if c_sum is None else c_sum + c
+    vk_x = None
+    for pt, k in zip(abc, coef):
+        t = pt * k
+        vk_x = t if vk_x is None else vk_x + t
+    pairs += [(g1_from_json(vk.data["alpha"], curve) * (sum(w) % r_ord), g2_from_json(vk.data["beta"], curve)),
+              (vk_x, g2_from_json(vk.data["gamma"], curve)), (c_sum, g2_from_json(vk.data["delta"], curve))]
+    return pairing_product_is_one(curve, pairs)
+
+
+def check_batch_verifies(vk, proofs, seed: int, what: str) -> None:
+    """verify_all on every proof of a batch, and on the same batch with one
+    proof's C swapped for another's, which must fail (the MPC phase calls
+    verify_all alone)."""
+    import copy
+
+    t0 = time.perf_counter()
+    ok = verify_all(vk, proofs, seed)
+    t1 = time.perf_counter()
+    bad = copy.deepcopy(proofs)
+    bad[-1].points["c"] = proofs[0].points["c"]
+    forged = verify_all(vk, bad, seed + 1)
+    log(f"  {what}: all {len(proofs)} proofs verify in one weighted pairing product: {ok} "
+        f"({t1 - t0:.1f} s); with proof {len(proofs) - 1}'s C swapped: {forged} ({time.perf_counter() - t1:.1f} s)")
+    if not ok:
+        raise AssertionError(f"{what}: the batch's proofs do not all verify")
+    if forged:
+        raise AssertionError(f"{what}: a batch holding a false proof verified")
+
+
 def run_batch_path(r1cs, pk, vk, wits, dev, smi):
     """prove_batch as bench.py runs it: one warm-up batch, NBATCHES timed
     ones, with the launch counts set to 0 just before the first and read
-    after the last; every proof of the last batch verifies, and proofs 0
-    and 1 equal prove() of the same witness with the same r, s."""
+    after the last; every proof of the last batch verifies (verify_all, in
+    one pairing product) and a false one in it is caught, all are
+    distinct, and proofs 0 and 1 equal prove() of the same witness with
+    the same r, s."""
     import torch
     from zokrates_tpu_torch.fields import params as P
     from zokrates_tpu_torch.kernels import msm_sorted
@@ -1667,12 +1801,7 @@ def run_batch_path(r1cs, pk, vk, wits, dev, smi):
     log(f"  launches over {1 + NBATCHES} batches: {launches}")
     log(f"  launches by width (kernel, 32-bit limbs): {dict(msm_sorted.WIDTH_LAUNCHES)}")
 
-    t0 = time.perf_counter()
-    bad = [b for b, pr in enumerate(proofs) if not g.verify(vk, pr)]
-    log(f"  verify the last batch's {len(proofs)} proofs: {len(proofs) - len(bad)} verify "
-        f"({time.perf_counter() - t0:.1f} s)")
-    if bad:
-        raise AssertionError(f"batch proofs {bad} failed to verify")
+    check_batch_verifies(vk, proofs, SEED + 5, "the last batch")
     if len({json.dumps(pr.points, sort_keys=True) for pr in proofs}) != len(proofs):
         raise AssertionError("batch proofs with distinct witnesses and r, s are not distinct")
     last = rs(NBATCHES)
@@ -1761,8 +1890,8 @@ def run_bls12_381_path(dev, smi, records):
     with a quarter of the values within 2^8 of r), appended to `records`;
     full sorted MSMs against the oracle on BLS12-381 and BLS12-377; setup,
     NPROOFS proofs and forgeries; the batch of BATCH witnesses. Returns the
-    launch counts of the main path and of the batches, the r1cs and the
-    main path's witness."""
+    launch counts of the main path and of the batches, the r1cs, the main
+    path's witness and its key pair (the ceremony's phase starts on it)."""
     import torch
     from zokrates_tpu_torch.schemes import groth16 as g
 
@@ -1773,6 +1902,10 @@ def run_bls12_381_path(dev, smi, records):
     t_load = time.perf_counter() - t0
     wits = batch_witnesses(prog)
     shapes, info = main_path_shapes(r1cs, wits[0])
+    # the h16 MSM's walks and suffix are held on a proof's own plan and
+    # table below (its mixed walk on two blocks of the plan: its plain
+    # version takes 30-45 s for the whole walk at 12 limbs)
+    del shapes["fq"]["extra"][" h16"]
     rdev = g._r1cs_device(r1cs, info["n"], dev)
     walks = path_walks(rdev)
     shapes["fr"]["ereduce_wide"] += walk_reduce_shapes(walks)
@@ -1794,15 +1927,18 @@ def run_bls12_381_path(dev, smi, records):
     log("== BLS12-381 main path: setup, prove, verify (sha256, 2^15)")
     launches, pk, vk = run_main_path(r1cs, wits[0], dev, forgeries=True)
     log(f"  12-limb MSM launches over setup and {NPROOFS} proofs: {check_width(12, 'the BLS12-381 main path')}")
-    log("== BLS12-381 h MSM: shared-bucket vs dense; its h16 suffix on that proof's own table (bit-equal)")
+    log("== BLS12-381 h MSM: shared-bucket vs dense; its h16 suffix and walks on that proof's own table "
+        "and plan (bit-equal)")
     _, h16_calls = compare_h_msm(r1cs, wits[0], pk, dev)
     records["suffix"].append(check_suffix_real(h16_calls["suffix"][0], tag, 12, curve))
+    records["walk_mixed"].append(check_walk_call(h16_calls["walk"][0], "h16 real" + tag, 12, curve, blocks=32))
+    records["walk_general"].append(check_walk_call(h16_calls["walk"][1], "h16 real" + tag, 12, curve))
     del h16_calls
     log(f"== BLS12-381 batched path: prove_batch, B={BATCH} distinct sha256 witnesses")
     launches_batch = run_batch_path(r1cs, pk, vk, wits, dev, smi)
     log(f"  12-limb MSM launches over the batches: {check_width(12, 'the BLS12-381 batched path')}")
     log_matvec(r1cs, dev, curve)
-    return launches, launches_batch, r1cs, wits[0]
+    return launches, launches_batch, r1cs, wits[0], (pk, vk)
 
 
 def toy_r1cs(curve: str):
@@ -2795,6 +2931,496 @@ def run_nova_path(dev, smi, records, pending_setup):
     return launches, per_step, result
 
 
+# ---------------------------------------------------------------------------
+# The Groth16 phase-2 ceremony (run_mpc_path)
+# ---------------------------------------------------------------------------
+
+# the kernels whose path is the ceremony: its ladders and column sums
+MPC_KERNELS = ("mixed_add_lm", "accumulate_lm")
+MPC_SAMPLES = 64               # h/l points and columns held to the host oracle
+MPC_PROOFS = 3                 # proofs with the BLS12-381 ceremony's key
+MPC_BEACON = "00000000000000000003e5ad4bd06a37f2e7ec1d5eaf30a11f1b0a4e8f4d7c9e"  # a block hash
+# Python scalar multiplies of a contribution (G1, G2): bellman's s, s_delta,
+# delta_after and r_delta, delta_g2; schemes/mpc's delta_g1, pk_s_g1 and
+# delta_g2, pk_s_g2
+MPC_MULS = {"bellman_mpc.contribute": (3, 2), "mpc.contribute": (2, 2)}
+
+
+class MpcGuard(PlainGuard):
+    """While active: PlainGuard's count, every call of a kernel wrapper's
+    plain version on a CUDA tensor at any depth, and the Python scalar
+    multiplies of G1 and G2 points made inside the ceremony's stages
+    (bellman_mpc.initialize / contribute / verify, mpc.contribute /
+    verify), by stage and group, and the point kernels' launches by
+    (kernel, 32-bit limbs, stage). Besides, it keeps for the checks: each
+    point kernel's last widest call by (kernel, 32-bit limbs, stage) (its
+    inputs cloned; a ladder's last step, whose accumulators have begun), every contribution's scaling (bellman_mpc._scale_points,
+    mpc.scale_rows: arguments and result) and every initialize's column
+    sums (bellman_mpc.TermSums.points: the sums, their terms and the
+    seconds of the call)."""
+
+    def __init__(self):
+        super().__init__()
+        from collections import Counter
+
+        from zokrates_tpu_torch.ec.curve import PointG1, PointG2
+        from zokrates_tpu_torch.interop import bellman_mpc
+        from zokrates_tpu_torch.kernels import ladder, msm_sorted, pallas_field
+        from zokrates_tpu_torch.schemes import mpc
+
+        self.stack = []
+        self.muls = Counter()
+        self.kernel_calls = {}
+        self.kernel_counts = Counter()
+        self.scalings = []
+        self.sums = []
+        for owner, prefix, names in ((bellman_mpc, "bellman_mpc.", ("initialize", "contribute", "verify")),
+                                     (mpc, "mpc.", ("contribute", "verify"))):
+            self.patches += [(owner, name, self._named(prefix + name)) for name in names]
+        self.patches += [(PointG1, "__mul__", self._mul("G1")), (PointG1, "__rmul__", self._mul("G1")),
+                         (PointG2, "__mul__", self._mul("G2")), (PointG2, "__rmul__", self._mul("G2")),
+                         (ladder, "mixed_add_lm", self._kernel), (ladder, "accumulate_lm", self._kernel),
+                         (bellman_mpc, "_scale_points", self._scaling), (mpc, "scale_rows", self._scaling),
+                         (bellman_mpc.TermSums, "points", self._sums)]
+        for mod, names in ((msm_sorted, ("walk_plain", "suffix_plain", "suffix_fold_plain")),
+                           (pallas_field, ("emul_plain", "ereduce_wide_plain", "mixed_add_lm_plain",
+                                           "accumulate_lm_plain", "mulacc_walk_plain"))):
+            self.patches += [(mod, name, self._any) for name in names]
+
+    def _named(self, stage):
+        def wrap(name, fn):
+            def wrapped(*args, **kw):
+                self.stack.append(stage)
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    self.stack.pop()
+            return wrapped
+        return wrap
+
+    def _mul(self, group):
+        def wrap(name, fn):
+            def wrapped(*args, **kw):
+                if self.stack:
+                    self.muls[(self.stack[-1], group)] += 1
+                return fn(*args, **kw)
+            return wrapped
+        return wrap
+
+    def _kernel(self, name, fn):
+        def wrapped(p, *args, **kw):
+            from zokrates_tpu_torch.fields.jfield import field_spec
+
+            t = args[0]
+            if t.is_cuda:
+                key = (name, field_spec(p).nl // 2, self.stack[-1] if self.stack else "-")
+                self.kernel_counts[key] += 1
+                old = self.kernel_calls.get(key)
+                if old is None or t.shape[-1] >= old[1][0].shape[-1]:
+                    self.kernel_calls[key] = (p, tuple(a.clone() for a in args), dict(kw))
+            return fn(p, *args, **kw)
+        return wrapped
+
+    def _scaling(self, name, fn):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            self.scalings.append((name, args, out))
+            return out
+        return wrapped
+
+    def _sums(self, name, fn):
+        def wrapped(acc, *args, **kw):
+            import torch
+
+            t0 = time.perf_counter()
+            out = fn(acc, *args, **kw)
+            torch.cuda.synchronize()
+            self.sums.append((acc, out, time.perf_counter() - t0))
+            return out
+        return wrapped
+
+
+class StepClock:
+    """Wall times of named steps, each ending in a device synchronize."""
+
+    def __init__(self):
+        self.ms = {}
+
+    def __call__(self, label, fn):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        self.ms[label] = (time.perf_counter() - t0) * 1e3
+        log(f"  {label}: {self.ms[label]:.1f} ms")
+        return out
+
+
+def _file_bytes(obj) -> bytes:
+    buf = io.BytesIO()
+    obj.write(buf)
+    return buf.getvalue()
+
+
+def _expect_reject(what: str, fn, exc=ValueError):
+    """fn() must raise exc (bellman verify) or return False (mpc verify)."""
+    try:
+        ok = fn()
+    except exc as e:
+        log(f"  forgery {what}: rejected ({e})")
+        return
+    if ok is not False:
+        raise AssertionError(f"the forgery {what} was not rejected")
+    log(f"  forgery {what}: rejected (verify False)")
+
+
+def run_bellman_bn254(r1cs, wits, dev, smi, guard):
+    """The bellman ceremony on BN254 sha256 as the CLI's mpc commands drive
+    it: a radix for its 2^15 domain, the file written and read back,
+    initialize, two contributions and a beacon, mpc.params written and
+    read back, verify (the three hashes), export, prove_batch of the
+    witnesses with the exported key (every proof verifies under its vk, in
+    one weighted pairing product: verify_all),
+    and four forgeries (a tampered h point, a swapped delta_g1, a wrong
+    cs_hash, a PublicKey with another r_delta), each rejected; those
+    verifies take initialize's result of the honest one (the same circuit
+    and radix)."""
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.interop import bellman_mpc as bm
+    from zokrates_tpu_torch.schemes import groth16 as g
+
+    curve = r1cs.curve
+    p = P.SCALAR_FIELDS[curve].p
+    n = 1 << max(1, (r1cs.num_constraints + r1cs.num_instance - 1).bit_length())
+    rng = random.Random(SEED + 70)
+    clock = StepClock()
+    log(f"== bellman MPC on {curve} sha256: {r1cs.num_constraints} constraints, domain {n}")
+    radix = clock("generate_radix", lambda: bm.generate_radix(curve, n, rng=lambda: rng.randrange(1, p), device=dev))
+    data = _file_bytes(radix)
+    radix = clock("radix file written and read back",
+                  lambda: bm.Phase1Radix.read(curve, io.BytesIO(_file_bytes(radix)), n))
+    if _file_bytes(radix) != data:
+        raise AssertionError("the phase1radix file read back writes other bytes")
+    log(f"  phase1radix2m{n.bit_length() - 1}: {len(data)} bytes, byte-equal after the read")
+    mpcp = clock("initialize", lambda: bm.initialize(r1cs, radix, device=dev))
+    for acc, _, sec in guard.sums[-2:]:
+        log(f"    of it {acc.group}'s {len(acc.cols)} terms over {acc.ncols} columns scaled and summed: {sec:.2f} s")
+    hashes = [clock("contribute 1", lambda: bm.contribute(mpcp, "alice", device=dev)),
+              clock("contribute 2", lambda: bm.contribute(mpcp, "bob", device=dev)),
+              clock("beacon", lambda: bm.beacon(mpcp, MPC_BEACON, device=dev))]
+    data = _file_bytes(mpcp)
+    back = clock("mpc.params written and read back", lambda: bm.MPCParameters.read(curve, io.BytesIO(_file_bytes(mpcp))))
+    if _file_bytes(back) != data:
+        raise AssertionError("the mpc.params file read back writes other bytes")
+    log(f"  mpc.params: {len(data)} bytes, byte-equal after the read; {len(mpcp.params.h)} h and "
+        f"{len(mpcp.params.l)} l points, {sum(pt is None for pt in mpcp.params.a)} empty a columns")
+    # verify runs initialize once here; the forgeries' verifies take its
+    # result (the same circuit and radix)
+    cached = {}
+    orig = bm.initialize
+
+    def memo(r1cs_, radix_, device="cuda"):
+        if "mpc" not in cached:
+            cached["mpc"] = orig(r1cs_, radix_, device=device)
+        return cached["mpc"]
+
+    vrng = random.Random(SEED + 71)
+    bm.initialize = memo
+    try:
+        got = clock("verify", lambda: bm.verify(back, r1cs, radix, rng=lambda: vrng.randrange(p), device=dev))
+        if got != hashes:
+            raise AssertionError("verify returned other contribution hashes")
+        log(f"  verify: the {len(got)} contribution hashes")
+        pk, vk = clock("export_keypair", lambda: bm.export_keypair(back, r1cs, device=dev))
+        draws = iter([(SEED + 72 + j) % p for j in range(2 * len(wits))])
+        proofs = clock(f"prove_batch B={len(wits)}",
+                       lambda: g.prove_batch(r1cs, pk, wits, rng=lambda: next(draws), device=dev))
+        if not clock(f"verify {len(proofs)} proofs (verify_all)", lambda: verify_all(vk, proofs, SEED + 73)):
+            raise AssertionError("the proofs of the exported key do not all verify")
+        log(f"  {len(proofs)} proofs with the exported key verify ({smi})")
+        prm, pub = back.params, back.contributions[1]
+        forgeries = [("a tampered h point", lambda: setattr(prm, "h", [prm.h[0] * 3] + prm.h[1:])),
+                     ("a swapped delta_g1", lambda: setattr(prm, "delta_g1", prm.delta_g1 * 7)),
+                     ("a wrong circuit (cs_hash)", lambda: setattr(back, "cs_hash", bytes(64))),
+                     ("a PublicKey with another r_delta", lambda: setattr(pub, "r_delta", pub.r_delta * 5))]
+        for what, tamper in forgeries:
+            saved = (prm.h, prm.delta_g1, back.cs_hash, pub.r_delta)
+            tamper()
+            _expect_reject(what, lambda: bm.verify(back, r1cs, radix, device=dev))
+            prm.h, prm.delta_g1, back.cs_hash, pub.r_delta = saved
+    finally:
+        bm.initialize = orig
+    return {"ms": clock.ms, "radix": radix, "params": mpcp}
+
+
+def run_mpc_bls12_381(r1cs, wit, keys, dev, smi):
+    """schemes/mpc on BLS12-381 sha256 as the CLI drives it: init on the
+    key pair the BLS12-381 main path set up on the card (`keys`; mpc.init
+    is groth16.setup and then mpc.from_keys, of which this times the
+    second), two contributions and a beacon (12-limb ladders), verify,
+    export, MPC_PROOFS proofs that verify, and a tampered h query that
+    verify rejects."""
+    from zokrates_tpu_torch.ec.curve import PointG1, g1_group
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.schemes import groth16 as g, mpc
+
+    curve = r1cs.curve
+    p = P.SCALAR_FIELDS[curve].p
+    clock = StepClock()
+    log(f"== schemes/mpc on {curve} sha256: {r1cs.num_constraints} constraints")
+    params = clock("init (from_keys on the main path's setup)", lambda: mpc.from_keys(*keys))
+    clock("contribute 1", lambda: mpc.contribute(params, "alice", device=dev))
+    clock("contribute 2", lambda: mpc.contribute(params, "bob", device=dev))
+    clock("beacon", lambda: mpc.beacon(params, MPC_BEACON, device=dev))
+    ok = clock("verify", lambda: mpc.verify(params, r1cs))
+    if not ok:
+        raise AssertionError("the BLS12-381 ceremony failed to verify")
+    pk, vk = mpc.export_keys(params)
+    for i in range(MPC_PROOFS):
+        draws = iter([(SEED + 74 + 2 * i) % p, (SEED + 75 + 2 * i) % p])
+        proof = clock(f"prove {i}", lambda: g.prove(r1cs, pk, wit, rng=lambda: next(draws), device=dev))
+        if not g.verify(vk, proof):
+            raise AssertionError(f"proof {i} with the ceremony's key failed to verify")
+    log(f"  {MPC_PROOFS} proofs with the exported key verify (h16_p128 {pk.h16_p128}: the dense h MSM; {smi})")
+    saved = pk.h_p128.copy()
+    hq = pk.h_query
+    bad = PointG1(g1_group(curve), *hq[0]) * 3
+    pk.h_query = [(bad.x, bad.y)] + hq[1:]
+    _expect_reject("a tampered h query point", lambda: mpc.verify(params, r1cs))
+    pk.set_h_rows(saved)
+    return {"ms": clock.ms}
+
+
+def run_bellman_toy(dev):
+    """The bellman ceremony on BLS12-381's cube toy (domain 8): radix,
+    initialize (accumulate_lm at 12 limbs), a contribution, verify,
+    export, a proof that verifies."""
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.interop import bellman_mpc as bm
+    from zokrates_tpu_torch.schemes import groth16 as g
+
+    curve = "bls12_381"
+    r1cs, wit = cube_r1cs(curve)
+    p = P.SCALAR_FIELDS[curve].p
+    rng = random.Random(SEED + 76)
+    clock = StepClock()
+    log(f"== bellman MPC on the {curve} cube toy")
+    radix = clock("generate_radix", lambda: bm.generate_radix(curve, 8, rng=lambda: rng.randrange(1, p), device=dev))
+    mpcp = clock("initialize", lambda: bm.initialize(r1cs, radix, device=dev))
+    h = clock("contribute", lambda: bm.contribute(mpcp, "carol", device=dev))
+    if clock("verify", lambda: bm.verify(mpcp, r1cs, radix, device=dev)) != [h]:
+        raise AssertionError("the toy ceremony's verify returned another hash")
+    pk, vk = bm.export_keypair(mpcp, r1cs, device=dev)
+    proof = g.prove(r1cs, pk, wit, device=dev)
+    if not g.verify(vk, proof):
+        raise AssertionError("the toy ceremony's key gave a proof that does not verify")
+    log("  the exported key's proof verifies")
+    return {"ms": clock.ms, "radix": radix, "r1cs": r1cs}
+
+
+def check_scalings(scalings, nrng):
+    """MPC_SAMPLES points of every contribution's scaling against the host:
+    Python k * P on the sampled inputs."""
+    import torch
+    from zokrates_tpu_torch.ec.curve import PointG1, g1_group
+    from zokrates_tpu_torch.fields.jfield import field_ops
+
+    t0 = time.perf_counter()
+    for name, args, out in scalings:
+        if name == "_scale_points":
+            curve, pts, k = args[:3]
+            live = [i for i, pt in enumerate(pts) if pt is not None and not pt.infinity]
+            for i in nrng.choice(live, min(MPC_SAMPLES, len(live)), replace=False):
+                want = pts[i] * k
+                if out[i] is None or (out[i].x, out[i].y) != (want.x, want.y):
+                    raise AssertionError(f"scaled point {i} differs from the host's k * P")
+        else:
+            curve, rows, k = args[:3]
+            grp = g1_group(curve)
+            f = field_ops(grp.q)
+            idx = nrng.choice(rows.shape[0], min(MPC_SAMPLES, rows.shape[0]), replace=False)
+
+            def affine(r):
+                t = torch.as_tensor(r[idx][:, : 2 * f.nl].astype(np.int64))
+                return list(zip(f.decode(t[:, : f.nl]), f.decode(t[:, f.nl :])))
+
+            for i, a, b in zip(idx, affine(rows), affine(out)):
+                want = PointG1(grp, *a) * k
+                if (want.x, want.y) != b:
+                    raise AssertionError(f"scaled row {i} differs from the host's k * P")
+    log(f"  {len(scalings)} contributions' scalings: {MPC_SAMPLES} sampled points each equal the host's k * P "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def host_columns(r1cs):
+    """Each variable's (row, coefficient) entries in A, B and C, read from
+    the r1cs itself."""
+    cols = {}
+    for name in ("A", "B", "C"):
+        c = [[] for _ in range(r1cs.num_variables)]
+        for r, row in enumerate(getattr(r1cs, name)):
+            for j, coef in row:
+                c[j].append((r, coef))
+        cols[name] = c
+    return cols
+
+
+def check_column_sums(acc, out, radix, r1cs, cols, nrng):
+    """MPC_SAMPLES sampled columns of each accumulator of one initialize
+    against the host's sum of coefficient * point, its terms rebuilt from
+    the r1cs's A / B / C and the radix tables as the JAX package's
+    _PointAccum takes them (Python ints): G1 a, b_g1, l/ic, and b_g2. A
+    column without terms must be None."""
+    from zokrates_tpu_torch.fields import params as P
+
+    nc, ni, m = r1cs.num_constraints, r1cs.num_instance, r1cs.num_variables
+    r_ord = P.SCALAR_FIELDS[r1cs.curve].p
+    lag, beta, alpha = radix.coeffs_g1, radix.beta_coeffs_g1, radix.alpha_coeffs_g1
+    bind = {j: [(nc + j, 1)] for j in range(ni)}  # the instance-binding rows
+
+    def terms_of(name, j):
+        if name == "a":
+            return [(lag[r], c) for r, c in cols["A"][j] + bind.get(j, [])]
+        if name == "b_g1":
+            return [(lag[r], c) for r, c in cols["B"][j]]
+        if name == "b_g2":
+            return [(radix.coeffs_g2[r], c) for r, c in cols["B"][j]]
+        return ([(beta[r], c) for r, c in cols["A"][j] + bind.get(j, [])]
+                + [(alpha[r], c) for r, c in cols["B"][j]] + [(lag[r], c) for r, c in cols["C"][j]])
+
+    def host_sum(terms):
+        s = None
+        for pt, coef in terms:
+            coef %= r_ord
+            if pt is None or not coef:
+                continue
+            t = pt * coef if coef != 1 else pt
+            s = t if s is None else s + t
+        return None if s is None or s.infinity else s
+
+    names = (("a", 0), ("b_g1", m), ("l/ic", 2 * m)) if acc.group == "g1" else (("b_g2", 0),)
+    for name, base in names:
+        terms = [terms_of(name, j) for j in range(m)]
+        empty = [j for j in range(m) if not terms[j]]
+        if any(out[base + j] is not None for j in empty):
+            raise AssertionError(f"a column of {name} without terms is not None")
+        live = [j for j in range(m) if terms[j]]
+        for j in nrng.choice(live, min(MPC_SAMPLES, len(live)), replace=False):
+            want, got = host_sum(terms[j]), out[base + j]
+            if (got is None) != (want is None) or (got is not None and (got.x, got.y) != (want.x, want.y)):
+                raise AssertionError(f"column {j} of {name} differs from the host's sum")
+    return [n for n, _ in names]
+
+
+def check_mpc_kernels(calls):
+    """Each point kernel's captured path call (the widest of each kernel,
+    width and stage) against its plain version on the same inputs, bit for
+    bit, with its device time, the plain version's and the bound. A mixed
+    add costs 11 products but where P (the ladder's accumulator) is at
+    infinity; an accumulation step 11 but where its bucket is still empty
+    (the first point a bucket takes); bytes: inputs and outputs once, an
+    accumulation's points only at the steps that name a bucket."""
+    import torch
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+
+    out = {name: [] for name in MPC_KERNELS}
+    curves = {8: "bn128", 12: "bls12_381"}
+    for (name, width, stage), (p, args, kw) in sorted(calls.items(), key=lambda kv: kv[0]):
+        label = {"bellman_mpc.contribute": "mpc contribution", "mpc.contribute": "mpc contribution",
+                 "bellman_mpc.initialize": "mpc term ladder" if name == "mixed_add_lm" else "mpc column sums"
+                 }.get(stage, stage)
+        if stage.startswith("mpc."):
+            label += " (schemes/mpc)"
+        cb = 2 * width * 4  # bytes of a coordinate: 2*width int32 rows of 16-bit limbs
+        kern = getattr(pf, name)
+        plain = getattr(pf, name + "_plain")
+        got = kern(p, *args, **kw)
+        torch.cuda.synchronize()
+        want, ms_p = host_ms(lambda: plain(p, *args, **kw))
+        ms_k = cuda_ms(lambda: kern(p, *args, **kw))
+        if name == "mixed_add_lm":
+            N = args[0].shape[1]
+            live = int((args[2] != 0).any(0).sum())
+            mults, nbytes, shape = MIXED_MULS * live, 8 * cb * N, (2 * width, N)
+        else:
+            d = args[0].to(torch.int64) & 0xFFFFFFFF
+            steps, R = d.shape
+            nb = kw.get("n_buckets", 16)
+            hit = (d >= 1) & (d < nb)
+            firsts = int(torch.unique((d * R + torch.arange(R, device=d.device))[hit]).numel())
+            hits = int(hit.sum())
+            mults = MIXED_MULS * (hits - firsts)
+            nbytes = 4 * steps * R + 2 * cb * hits + 3 * cb * nb * R
+            shape = (nb, steps, R)
+        rec = _record(name, "Fq", label, shape, got, want, ms_k, ms_p, mults, nbytes, width, curves[width])
+        out[name].append(rec)
+        del got, want
+    return out
+
+
+def run_mpc_path(dev, smi, records, bn, bls):
+    """The Groth16 phase-2 ceremony on the card: the bellman ceremony on
+    BN254 sha256 (run_bellman_bn254), schemes/mpc on BLS12-381 sha256
+    (run_mpc_bls12_381) and the bellman ceremony on BLS12-381's cube toy
+    (run_bellman_toy), with the launch counts set to 0 just before and
+    read just after; mixed_add_lm and accumulate_lm launched at 8 and 12
+    limbs, no plain version on the card and no Python scalar multiply in
+    initialize or verify, a contribution's only its named few (MpcGuard);
+    then the host oracle on sampled scaled points and column sums, and the
+    point kernels' path calls against their plain versions (appended to
+    `records`). Returns the launch counts and the phase's results."""
+    from zokrates_tpu_torch.kernels import pallas_field
+
+    prog, r1cs, wits = bn
+    r1cs_bls, wit_bls, keys_bls = bls
+    clear_launches()
+    with MpcGuard() as guard:
+        bn_res = run_bellman_bn254(r1cs, wits, dev, smi, guard)
+        n_bn = len(guard.sums)
+        bls_res = run_mpc_bls12_381(r1cs_bls, wit_bls, keys_bls, dev, smi)
+        toy_res = run_bellman_toy(dev)
+    launches = launch_counts()
+    widths = {k: v for k, v in pallas_field.WIDTH_LAUNCHES.items() if k[0] in MPC_KERNELS}
+    log(f"  launches over the ceremony's path: {launches}; point kernels by width {widths}; by (kernel, "
+        f"32-bit limbs, stage): {dict(guard.kernel_counts)}")
+    missing = [(k, w) for k in MPC_KERNELS for w in (8, 12) if widths.get((k, w), 0) <= 0]
+    if missing:
+        raise AssertionError(f"the ceremony did not launch {missing}: {widths}")
+    stages = {}
+    for (stage, group), n in guard.muls.items():
+        stages.setdefault(stage, {})[group] = n
+    contribs = {"bellman_mpc.contribute": 4, "mpc.contribute": 3}
+    want = {s: {"G1": contribs[s] * g1, "G2": contribs[s] * g2} for s, (g1, g2) in MPC_MULS.items()}
+    log(f"  plain versions on the card: {guard.calls or 0}; Python scalar multiplies by stage {stages} "
+        f"(allowed: {want})")
+    if guard.calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors on the ceremony's path: {guard.calls}")
+    if stages != want:
+        raise AssertionError(f"Python scalar multiplies on the ceremony's path: {stages}, allowed {want}")
+
+    log("== MPC checks: sampled points and columns against the host, the point kernels against their plain versions")
+    t0 = time.perf_counter()
+    nrng = np.random.default_rng(SEED + 77)
+    check_scalings(guard.scalings, nrng)
+    bn_cols, toy_cols = host_columns(r1cs), host_columns(toy_res["r1cs"])
+    for (acc, out, _), radix, rr, cols in ((guard.sums[0], bn_res["radix"], r1cs, bn_cols),
+                                          (guard.sums[1], bn_res["radix"], r1cs, bn_cols),
+                                          (guard.sums[n_bn], toy_res["radix"], toy_res["r1cs"], toy_cols),
+                                          (guard.sums[n_bn + 1], toy_res["radix"], toy_res["r1cs"], toy_cols)):
+        names = check_column_sums(acc, out, radix, rr, cols, nrng)
+        log(f"  initialize's {', '.join(names)} sums ({acc.curve}): {MPC_SAMPLES} sampled columns each equal "
+            f"the host's (or all, where fewer)")
+    for name, recs in check_mpc_kernels(guard.kernel_calls).items():
+        records[name] += recs
+    log(f"  checks: {time.perf_counter() - t0:.1f} s")
+    result = {"bellman_bn254_ms": bn_res["ms"], "mpc_bls12_381_ms": bls_res["ms"], "bellman_toy_ms": toy_res["ms"],
+              "point_kernel_widths": {f"{k}@{w}": v for (k, w), v in widths.items()},
+              "point_kernel_stages": {f"{k}@{w} {st}": v for (k, w, st), v in guard.kernel_counts.items()}}
+    return launches, result
+
+
 def main():
     import torch
 
@@ -2846,6 +3472,10 @@ def run_all(dev, t_all, pending_setup):
     t0 = time.perf_counter()
     prog, r1cs, wit = load_sha256()
     shapes, info = main_path_shapes(r1cs, wit)
+    # the h16 MSM's walks, suffix and epilogue are held on a proof's own
+    # plan and table after the main path (check_h16_real), not here on
+    # random tables at the same shapes
+    del shapes["fq"]["extra"][" h16"], shapes["fq"]["fold"]["h16 MSM"]
     rdev = g._r1cs_device(r1cs, info["n"], dev)
     walks = path_walks(rdev)
     shapes["fr"]["ereduce_wide"] += walk_reduce_shapes(walks)
@@ -2875,10 +3505,9 @@ def run_all(dev, t_all, pending_setup):
     wits = batch_witnesses(prog)
     log(f"  {len(wits)} witnesses by the port's interpreter: {time.perf_counter() - t0:.1f} s")
     launches_batch = run_batch_path(r1cs, pk, vk, wits, dev, smi)
-    del wits
     log_matvec(r1cs, dev, "bn128")
 
-    launches_bls, launches_bls_batch, r1cs_bls, wit_bls = run_bls12_381_path(dev, smi, records)
+    launches_bls, launches_bls_batch, r1cs_bls, wit_bls, keys_bls = run_bls12_381_path(dev, smi, records)
 
     log("== GM17 BLS12-381 path: setup, prove, verify (sha256 as a SAP, 2^16)")
     launches_gm17_bls, widths, gm17_bls_pk = run_gm17_path(r1cs_bls, wit_bls, dev, smi)
@@ -2891,7 +3520,7 @@ def run_all(dev, t_all, pending_setup):
                               " gm17 bls12_381", near=0.25)
     for name, recs in got.items():
         records[name] += recs
-    del gm17_bls_pk, r1cs_bls, wit_bls
+    del gm17_bls_pk
     log(f"  checks: {time.perf_counter() - t0:.1f} s")
 
     log("== BLS12-377: Groth16 on a toy circuit")
@@ -2909,7 +3538,7 @@ def run_all(dev, t_all, pending_setup):
             records[name] += recs
     log(f"  checks: {time.perf_counter() - t0:.1f} s")
 
-    log("== point kernels (no path calls them) and the throughput probe")
+    log("== point kernels on random inputs with every edge case, and the throughput probe")
     t0 = time.perf_counter()
     records.update(check_point_kernels(dev))
     probe_rates(dev)
@@ -2925,6 +3554,13 @@ def run_all(dev, t_all, pending_setup):
     log(f"  Nova phase: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"nova": nova_result}), flush=True)
 
+    t0 = time.perf_counter()
+    launches_mpc, mpc_result = run_mpc_path(dev, smi, records, (prog, r1cs, wits), (r1cs_bls, wit_bls, keys_bls))
+    del wits
+    mpc_result["phase_s"] = time.perf_counter() - t0
+    log(f"  MPC phase: {mpc_result['phase_s']:.1f} s")
+    print(json.dumps({"mpc": mpc_result}), flush=True)
+
     kernels = []
     for name, recs in records.items():
         head = next(r for r in recs if (r["field"], r["mode"]) == MAIN_VARIANT[name])
@@ -2932,7 +3568,8 @@ def run_all(dev, t_all, pending_setup):
         kernels.append({
             "name": name, "route": "cuda", "source": os.path.relpath(cuda.SOURCES[lib], ROOT),
             "replaces": replaces,
-            "launches": launches.get(name, 0),
+            "launches": (launches_mpc if name in MPC_KERNELS else launches).get(name, 0),
+            "launches_mpc": launches_mpc.get(name, 0),
             "launches_batch": launches_batch.get(name, 0),
             "launches_gm17": launches_gm17.get(name, 0),
             "launches_bls12_381": launches_bls.get(name, 0),

@@ -51,7 +51,12 @@ and 48; the epilogue also at the shared-bucket h MSM's shape
 random plans at 1024 to 32768 lanes (runs that end at row changes and
 at lane ends, lanes of padding), B = 1, 3 and 16, over BN254's and
 BLS12-381's r, and groth16._matvec_walk against the COO matvec; the point kernels with P at infinity, P == Q,
-P == -Q, digits 0 and >= n_buckets and buckets hit several times.
+P == -Q, digits 0 and >= n_buckets and buckets hit several times, at 8
+and 12 limbs (BLS12-381 and BLS12-377 Fq, Z within 2^8 of q), and their
+C entry points' refusal of another width; the ceremony's ladders
+(kernels/ladder: one scalar for all points, a scalar a point, the column
+sums through accumulate_lm and over G2) on a few hundred points against
+Python-int point arithmetic, on BN254 and BLS12-381.
 Tolerance: bit equality of every output limb.
 """
 
@@ -842,6 +847,148 @@ def test_accumulate_lm_kernel_equals_plain(dev):
         assert torch.equal(g, w)
     assert (got[2][0] == 0).all() and (got[2][:, :, 2] == 0).all()   # untouched buckets
     assert (got[2][7, :, 1] == 0).all()                             # cancelled
+
+
+@pytest.mark.parametrize("curve", BLS12)
+def test_mixed_add_lm_12_limbs_equals_plain(dev, curve):
+    """mixed_add_lm at 12 limbs (the BLS12 base fields): P == Q, P == -Q,
+    P at infinity and Z within 2^8 of q, against the plain version."""
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+
+    affine, jac, q, _ = _rows12(curve, False, 41)
+    nl = 24
+    nrng = np.random.default_rng(42)
+    n, N = affine.shape[0], 768
+    qi = nrng.integers(0, n, N)
+    pi = nrng.integers(0, jac.shape[0], N)
+    pi[0::4] = qi[0::4]                        # P == Q (the row with its Z near q)
+    pi[1::4] = (qi[1::4] + n // 2) % n         # P == -Q
+    pi[2::8] = jac.shape[0] - 1                # P at infinity
+
+    def rows(t, lo):
+        return t[:, lo : lo + nl].T.contiguous().to(dev)
+
+    args = [rows(jac[pi], 0), rows(jac[pi], nl), rows(jac[pi], 2 * nl), rows(affine[qi], 0), rows(affine[qi], nl)]
+    before = pf.LAUNCHES["mixed_add_lm"]
+    got = pf.mixed_add_lm(q, *args)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES["mixed_add_lm"] == before + 1
+    want = pf.mixed_add_lm_plain(q, *args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[2] == 0).all(0).any()  # the cancellations
+
+
+@pytest.mark.parametrize("curve", BLS12)
+def test_accumulate_lm_12_limbs_equals_plain(dev, curve):
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+
+    affine, _, q, _ = _rows12(curve, False, 43)
+    nl, n = 24, affine.shape[0]
+    nb, chunk_len, R = 16, 6, 512
+    nrng = np.random.default_rng(44)
+    digits = nrng.integers(0, nb + 3, (chunk_len, R)).astype(np.int64)
+    qi = nrng.integers(0, n, (chunk_len, R))
+    digits[:3, 0], qi[:3, 0] = 5, [1, 1, 1 + n // 2]      # P, P (doubles), -P
+    digits[:2, 1], qi[:2, 1] = 7, [2, 2 + n // 2]         # P, -P (cancels)
+    digits[:, 2] = [0, nb, 0x7FFFFFFF, 0xFFFFFFFF, 0, 0]  # touch nothing
+    qt = torch.as_tensor(qi)
+
+    def rows(c):  # (chunk_len, R, nl) -> (chunk_len * nl, R)
+        return c.permute(0, 2, 1).reshape(chunk_len * nl, R).contiguous().to(dev)
+
+    args = (torch.as_tensor(digits.astype(np.uint32).view(np.int32)).to(dev),
+            rows(affine[qt][..., :nl]), rows(affine[qt][..., nl:]))
+    before = pf.LAUNCHES["accumulate_lm"]
+    got = pf.accumulate_lm(q, *args, n_buckets=nb)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES["accumulate_lm"] == before + 1
+    want = pf.accumulate_lm_plain(q, *args, n_buckets=nb)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[2][7, :, 1] == 0).all() and (got[2][:, :, 2] == 0).all()
+
+
+def test_point_entry_points_refuse_unknown_widths(dev):
+    """The C entry points launch nothing at a width they have no
+    instantiation of."""
+    from zokrates_tpu_torch.kernels import cuda
+
+    lib = cuda.load()
+    n = 256
+    t = torch.zeros((48, n), dtype=torch.int32, device=dev)
+    _, pl, one, n0, _ = cuda.field_params(Q, None, cuda.NL32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for nl in (4, 16):
+        rc = lib.zkt_mixed_add_lm(*(t.data_ptr() for _ in range(8)), n, 256, nl, pl, one, n0, stream)
+        assert rc != 0
+        rc = lib.zkt_accumulate_lm(t.data_ptr(), t.data_ptr(), t.data_ptr(), t.data_ptr(), t.data_ptr(),
+                                   t.data_ptr(), 1, n, 4, 256, nl, pl, one, n0, stream)
+        assert rc != 0
+
+
+@pytest.mark.parametrize("curve", ["bn128", "bls12_381"])
+def test_ceremony_ladders_on_card(dev, curve):
+    """kernels/ladder on the card against Python-int point arithmetic on a
+    few hundred points: one scalar for all (a contribution), a scalar a
+    point (coefficients 1, small, negated small and full width), the
+    column sums through accumulate_lm (a cancelling column, an empty one,
+    a column of 40 terms, more than a piece) and over G2 through jec."""
+    from zokrates_tpu_torch.kernels import ladder, pallas_field as pf
+    from zokrates_tpu_torch.kernels.jec import curve_ops, curve_ops_g2
+
+    rng = random.Random(45)
+    grp = g1_group(curve)
+    q, r = grp.q, grp.r
+    ops = curve_ops(q)
+    base = [grp.generator() * rng.randrange(1, r) for _ in range(12)]
+    pts = [base[i % 12] * (i + 1) for i in range(300)]
+    ax = ops.f.encode([p.x for p in pts], device=dev)
+    ay = ops.f.encode([p.y for p in pts], device=dev)
+    k = rng.randrange(1, r)
+    before = dict(pf.LAUNCHES)
+    got = ops.to_affine_ints(ladder.scale_affine(curve, ax, ay, k))
+    assert got == [((p * k).x, (p * k).y) for p in pts]
+    ks = [rng.choice([1, 2, r - 1, rng.randrange(1, 1 << 64), r - rng.randrange(1, 1 << 64),
+                      rng.randrange(1, r)]) for _ in pts]
+    terms = ops.to_affine_ints(ladder.scale_terms(ops, ladder.g1_adder(q), ax, ay, ks, r))
+    assert terms == [((p * c).x, (p * c).y) for p, c in zip(pts, ks)]
+    cols = np.asarray([rng.randrange(0, 80) for _ in pts] + [80, 80] + [81] * 40)
+    extra = [pts[0], -pts[0]] + [pts[j] for j in range(40)]
+    allp = pts + extra
+    bx = ops.f.encode([p.x for p in allp], device=dev)
+    by = ops.f.encode([p.y for p in allp], device=dev)
+    sums, (R, steps) = ladder.column_sums_g1(q, bx, by, cols, 83)
+    got = ops.to_affine_ints(sums)
+    for c in range(83):
+        acc = grp.zero()
+        for p, cc in zip(allp, cols):
+            if cc == c:
+                acc = acc + p
+        assert got[c] == (None if acc.infinity else (acc.x, acc.y)), c
+    assert got[80] is None and got[82] is None
+    assert steps < 40  # the 40-term column is summed in pieces of ladder.PIECE
+    assert pf.LAUNCHES["accumulate_lm"] == before.get("accumulate_lm", 0) + 1
+    assert pf.LAUNCHES["mixed_add_lm"] > before.get("mixed_add_lm", 0) + 100
+    g2 = g2_group(curve)
+    o2 = curve_ops_g2(curve)
+    p2 = [g2.generator() * rng.randrange(1, r) for _ in range(24)]
+    c2x = o2.f.encode([(p.x.c0, p.x.c1) for p in p2], device=dev)
+    c2y = o2.f.encode([(p.y.c0, p.y.c1) for p in p2], device=dev)
+    k2 = [rng.choice([1, r - 3, rng.randrange(1, r)]) for _ in p2]
+    t2 = ladder.scale_terms(o2, o2.mixed_add, c2x, c2y, k2, r)
+    from zokrates_tpu_torch.kernels.fixed_base import batch_normalize
+
+    tx, ty, _ = batch_normalize(o2, t2)
+    cols2 = np.asarray([i % 5 for i in range(24)])
+    got2 = o2.to_affine_ints(ladder.column_sums_ext(o2, tx, ty, cols2, 6))
+    for c in range(6):
+        acc = g2.zero()
+        for p, kk, cc in zip(p2, k2, cols2):
+            if cc == c:
+                acc = acc + p * kk
+        want = None if acc.infinity else ((acc.x.c0, acc.x.c1), (acc.y.c0, acc.y.c1))
+        assert got2[c] == want, c
 
 
 def _toy_r1cs():

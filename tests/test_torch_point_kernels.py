@@ -10,6 +10,9 @@ kernels mixed_add_lm and accumulate_lm state they share).
     add: digits 0, digits >= n_buckets (and 0xFFFFFFFF, read unsigned),
     buckets hit several times within the chunk, a repeated point (the
     doubling) and a negated one (the cancellation);
+  * both again at 12 32-bit limbs (BLS12-381's Fq, 24 16-bit limbs), the
+    mixed add also with every Jacobian Z within 2^8 of q, the
+    accumulation at 4 and 16 buckets;
   * the wrappers' checks of dtype, shape, block and device, and that CPU
     calls count no launch.
 
@@ -181,3 +184,108 @@ def test_point_kernel_wrappers_check_inputs(case):
         acc[1] = qrows.to("meta")
     with pytest.raises((TypeError, ValueError)):
         pf.accumulate_lm(Q, *acc, n_buckets=4, **kw)
+
+
+# ---------------------------------------------------------------------------
+# 12 limbs: BLS12-381's base field (24 16-bit limbs), the width the phase-2
+# ceremony's contributions and column sums run at on BLS12-381
+# ---------------------------------------------------------------------------
+
+GRP12 = g1_group("bls12_381")
+Q12 = GRP12.q
+NL12 = 24
+RMONT12 = (1 << (16 * NL12)) % Q12
+
+
+@pytest.fixture(scope="module")
+def jadd12():
+    """The JAX complete mixed add over BLS12-381's Fq, (N, 24) limbs."""
+    ops = curve_ops(Q12)
+    fn = jax.jit(lambda X, Y, Z, qx, qy: ops.mixed_add((X, Y, Z), qx, qy))
+
+    def add(P, qx, qy):
+        out = fn(*(jnp.asarray(a.astype(np.uint32)) for a in (*P, qx, qy)))
+        return tuple(np.asarray(o).astype(np.int64) for o in out)
+
+    return add
+
+
+def _mont12(xs):
+    return ints_to_limbs([x * RMONT12 % Q12 for x in xs], NL12).astype(np.int64)
+
+
+def _jac12(rng, pt, near):
+    """(X, Y, Z) ints of pt with Z random or within 2^8 of q (near); for
+    None, infinity."""
+    if pt is None:
+        return (rng.randrange(Q12), rng.randrange(Q12), 0)
+    z = Q12 - rng.randrange(1, 1 << 8) if near else rng.randrange(1, Q12)
+    return (pt.x * z * z % Q12, pt.y * z ** 3 % Q12, z)
+
+
+@pytest.mark.parametrize("z", ["random", "near_q"])
+def test_mixed_add_lm_12_limbs_matches_reference(jadd12, z):
+    rng = random.Random(21)
+    pts = [GRP12.generator() * rng.randrange(1, GRP12.r) for _ in range(6)]
+    P, Qa, cases = [], [], []
+    for i in range(N):
+        kind = ("general", "infinity", "double", "cancel")[i % 4]
+        qpt = pts[i % len(pts)]
+        ppt = {"general": pts[(i + 1) % len(pts)], "infinity": None, "double": qpt, "cancel": -qpt}[kind]
+        P.append(_jac12(rng, ppt, z == "near_q"))
+        Qa.append(qpt)
+        cases.append(kind)
+    Pm = tuple(_mont12([p[c] for p in P]) for c in range(3))
+    qx, qy = _mont12([q.x for q in Qa]), _mont12([q.y for q in Qa])
+    want = jadd12(Pm, qx, qy)
+    before = pf.LAUNCHES["mixed_add_lm"]
+    got = pf.mixed_add_lm(Q12, *(_lm(a) for a in (*Pm, qx, qy)), block=8)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.shape == (NL12, N)
+        np.testing.assert_array_equal(g.numpy().T.astype(np.int64), w)
+    zrows = got[2].numpy().T
+    for i, kind in enumerate(cases):
+        assert (zrows[i] == 0).all() == (kind == "cancel")
+    assert pf.LAUNCHES["mixed_add_lm"] == before
+
+
+@pytest.mark.parametrize("nb", [4, 16])
+def test_accumulate_lm_12_limbs_matches_bucket_fold(jadd12, nb):
+    """accumulate_lm at 24 limbs against the JAX mixed add folded bucket
+    by bucket, at 4 buckets and at the ceremony's 16."""
+    chunk_len = 5
+    rng = random.Random(22)
+    pts = [GRP12.generator() * rng.randrange(1, GRP12.r) for _ in range(3)]
+    pool = pts + [-p for p in pts]
+    nrng = np.random.default_rng(23)
+    digits = nrng.integers(0, nb + 2, (chunk_len, N)).astype(np.int64)
+    idx = nrng.integers(0, len(pool), (chunk_len, N))
+    digits[:, 0] = [1, 1, 0, 1, nb]        # P, P (doubles), ..., -P
+    idx[:, 0] = [0, 0, 1, 3, 2]
+    digits[:, 1] = [2, 2, 0xFFFFFFFF, 3, 0]  # P then -P (cancels)
+    idx[:, 1] = [1, 4, 0, 2, 0]
+    qx = np.stack([_mont12([pool[j].x for j in row]) for row in idx])
+    qy = np.stack([_mont12([pool[j].y for j in row]) for row in idx])
+    one = _mont12([1])[0]
+    B = [np.broadcast_to(one, (nb, N, NL12)).copy(), np.broadcast_to(one, (nb, N, NL12)).copy(),
+         np.zeros((nb, N, NL12), np.int64)]
+    lanes = np.arange(N)
+    for t in range(chunk_len):
+        d = digits[t]
+        hit = (d >= 1) & (d < nb)
+        b = np.where(hit, d, 0)
+        new = jadd12(tuple(c[b, lanes] for c in B), qx[t], qy[t])
+        for c, v in zip(B, new):
+            c[b[hit], lanes[hit]] = v[hit]
+    before = pf.LAUNCHES["accumulate_lm"]
+    got = pf.accumulate_lm(
+        Q12, torch.as_tensor(digits.astype(np.uint32).view(np.int32)),
+        torch.as_tensor(np.ascontiguousarray(qx.transpose(0, 2, 1)).reshape(chunk_len * NL12, N).astype(np.int32)),
+        torch.as_tensor(np.ascontiguousarray(qy.transpose(0, 2, 1)).reshape(chunk_len * NL12, N).astype(np.int32)),
+        n_buckets=nb, block=8,
+    )
+    for g, w in zip(got, B):
+        assert g.dtype == torch.int32 and g.shape == (nb, NL12, N)
+        np.testing.assert_array_equal(g.numpy().transpose(0, 2, 1).astype(np.int64), w)
+    assert (got[2].numpy()[2, :, 1] == 0).all()  # lane 1's bucket 2: P + (-P)
+    assert pf.LAUNCHES["accumulate_lm"] == before

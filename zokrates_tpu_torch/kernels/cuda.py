@@ -37,10 +37,10 @@ HEADERS = [os.path.join(CSRC, "field.cuh")]
 ARCH = "arch=compute_90a,code=sm_90a"
 # 32-bit limbs per element the kernels are instantiated for: 8 (BN254's
 # fields, the BLS12 scalar fields) and 12 (the BLS12 base fields; the MSM
-# kernels of msm_sorted.cu and emul)
+# kernels of msm_sorted.cu, emul and the point kernels of
+# point_elementwise.cu)
 NL32 = (8, 12)
-# the widths of the other kernels (ereduce_wide, NTT, matvec walk, point
-# kernels, probe)
+# the widths of the other kernels (ereduce_wide, NTT, matvec walk, probe)
 NL32_FIELD = (8,)
 
 _LIB: Optional[SimpleNamespace] = None
@@ -103,8 +103,8 @@ def load() -> SimpleNamespace:
             "zkt_mulacc_walk": [P, P, LL, P, P, P, P, P, I, I, I, LL, I, I, L, L, U, P],
         },
         "zkt_point": {
-            "zkt_mixed_add_lm": [P, P, P, P, P, P, P, P, I, I, L, L, U, P],
-            "zkt_accumulate_lm": [P, P, P, P, P, P, I, I, I, I, L, L, U, P],
+            "zkt_mixed_add_lm": [P, P, P, P, P, P, P, P, I, I, I, L, L, U, P],
+            "zkt_accumulate_lm": [P, P, P, P, P, P, I, I, I, I, I, L, L, U, P],
         },
         "zkt_probe": {
             "zkt_probe_imad": [P, I, I, U, P],

@@ -40,7 +40,8 @@ from ..fields.jfield2 import field_ops2
 # launches of each CUDA kernel, counted by its wrapper (plain-version runs
 # on CPU tensors are not launches)
 LAUNCHES: Counter = Counter()
-# emul's launches by width: (kernel, 32-bit limbs) -> launches
+# launches of emul and the point kernels by width: (kernel, 32-bit limbs)
+# -> launches
 WIDTH_LAUNCHES: Counter = Counter()
 # elements a tile of csrc/field_elementwise.cu's emul_kernel (its
 # zkt_emul_tile(); kernels/cuda.load checks that they agree)
@@ -404,7 +405,8 @@ def mixed_add_lm(p: int, X, Y, Z, Qx, Qy, block: int = 256):
     (CUDA kernel mixed_add_kernel, the reference's mixed_add_lm).
 
     X, Y, Z (Jacobian, Z = 0 at infinity) and Qx, Qy (affine): (nl, N)
-    int32 rows of canonical 16-bit Montgomery limbs, contiguous; N a
+    int32 rows of canonical 16-bit Montgomery limbs, contiguous, nl 16 or
+    24 (the kernel's 8 or 12 32-bit limbs; another raises); N a
     multiple of block (the kernel's threads per block). Returns the sum as
     new (X, Y, Z), same layout: P at infinity gives (Qx, Qy, one), P == Q
     the doubling, P == -Q Z = 0. CPU tensors take mixed_add_lm_plain; CUDA
@@ -423,16 +425,17 @@ def mixed_add_lm(p: int, X, Y, Z, Qx, Qy, block: int = 256):
     from . import cuda
 
     lib = cuda.load()
-    _, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32_FIELD)
+    n32, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32)
     out = torch.empty((3, nl, N), dtype=torch.int32, device=X.device)
     if N == 0:
         return out[0], out[1], out[2]
     with torch.cuda.device(X.device):
         rc = lib.zkt_mixed_add_lm(X.data_ptr(), Y.data_ptr(), Z.data_ptr(), Qx.data_ptr(), Qy.data_ptr(),
-                                  out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), N, block,
+                                  out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), N, block, n32,
                                   pl, one, n0, torch.cuda.current_stream(X.device).cuda_stream)
     cuda.check(rc, "mixed_add_lm")
     LAUNCHES["mixed_add_lm"] += 1
+    WIDTH_LAUNCHES[("mixed_add_lm", n32)] += 1
     return out[0], out[1], out[2]
 
 
@@ -464,7 +467,8 @@ def accumulate_lm(p: int, digits, Qx, Qy, n_buckets: int = 16, block: int = 256)
     accumulate_kernel, the reference's accumulate_lm).
 
     digits: (chunk_len, R) int32, read as unsigned; Qx, Qy: (chunk_len*nl,
-    R) int32 affine limb rows, step t's at rows [t*nl, (t+1)*nl); all
+    R) int32 affine limb rows, step t's at rows [t*nl, (t+1)*nl), nl 16 or
+    24 (another raises on a CUDA tensor); all
     contiguous, R a multiple of block. Lane j's buckets start as (one, one,
     0); step t mixed-adds (Qx, Qy)[t, j] into bucket digits[t, j] when that
     is in [1, n_buckets) and touches nothing otherwise. Returns the bucket
@@ -487,14 +491,15 @@ def accumulate_lm(p: int, digits, Qx, Qy, n_buckets: int = 16, block: int = 256)
     from . import cuda
 
     lib = cuda.load()
-    _, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32_FIELD)
+    n32, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32)
     out = torch.empty((3, n_buckets, nl, R), dtype=torch.int32, device=digits.device)
     if R == 0:
         return out[0], out[1], out[2]
     with torch.cuda.device(digits.device):
         rc = lib.zkt_accumulate_lm(digits.data_ptr(), Qx.data_ptr(), Qy.data_ptr(), out[0].data_ptr(),
-                                   out[1].data_ptr(), out[2].data_ptr(), chunk_len, R, n_buckets, block,
+                                   out[1].data_ptr(), out[2].data_ptr(), chunk_len, R, n_buckets, block, n32,
                                    pl, one, n0, torch.cuda.current_stream(digits.device).cuda_stream)
     cuda.check(rc, "accumulate_lm")
     LAUNCHES["accumulate_lm"] += 1
+    WIDTH_LAUNCHES[("accumulate_lm", n32)] += 1
     return out[0], out[1], out[2]

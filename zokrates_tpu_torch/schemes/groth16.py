@@ -183,6 +183,67 @@ class ProvingKey:
         self.__dict__.setdefault("_b2_xy", None)
         self._dev = {}
 
+    # -- host-point views (the MPC ceremony reads and writes these) --------
+    def _unpack_g1(self, p128: np.ndarray, mask=None) -> List[Optional[Tuple[int, int]]]:
+        """Packed rows -> host affine (x, y) ints, None where mask is False."""
+        f = field_ops(P.BASE_FIELDS[self.curve].p)
+        nl = f.nl
+        arr = torch.as_tensor(np.asarray(p128)[:, : 2 * nl].astype(np.int64))
+        xs = f.decode(arr[:, :nl])
+        ys = f.decode(arr[:, nl : 2 * nl])
+        return [None if mask is not None and not mask[i] else (xs[i], ys[i]) for i in range(len(xs))]
+
+    @property
+    def h_query(self) -> List[Tuple[int, int]]:
+        return self._unpack_g1(self.h_p128)
+
+    @h_query.setter
+    def h_query(self, pts):
+        self.set_h_query(pts, self._query_device())
+
+    def _query_device(self):
+        """Where the query setters pack: the device of the key's cached
+        copies, else the card."""
+        return next((key[0] for key in self._dev if isinstance(key, tuple)), "cuda")
+
+    def set_h_query(self, pts, device="cuda") -> None:
+        """New h query from host affine points, encoded and packed on
+        `device`."""
+        self.set_h_rows(_pack_query(self.curve, pts, device)[0])
+
+    def set_h_rows(self, h_p128: np.ndarray) -> None:
+        """New h query rows; the shifted copies h16_p128 and the device
+        copies are stale after it, so they go (a key whose h query changed
+        proves by the dense h MSM)."""
+        self.h_p128 = h_p128
+        self.h16_p128 = None
+        self._dev.clear()
+
+    @property
+    def l_query(self) -> List[Optional[Tuple[int, int]]]:
+        """Reference-shaped l query: one entry per witness index >= ni
+        (the internal array is z-aligned with dummies at [0, ni))."""
+        ni = self.num_instance
+        return self._unpack_g1(self.l_p128[ni:], self.l_mask[ni:])
+
+    @l_query.setter
+    def l_query(self, pts):
+        self.set_l_query(pts, self._query_device())
+
+    def set_l_query(self, pts, device="cuda") -> None:
+        """New l query from host affine points (None = absent), encoded and
+        packed on `device`, its dummies (i+1)*G from the fixed-base
+        evaluator there."""
+        ni = self.num_instance
+        self.l_p128, self.l_mask, self.corr_w[2] = _pack_query_dummied(self.curve, [None] * ni + list(pts), device)
+        self._dev.clear()
+
+    def set_l_rows(self, l_p128: np.ndarray) -> None:
+        """New l query rows at the same mask (the dummy rows and their
+        correction weights unchanged)."""
+        self.l_p128 = l_p128
+        self._dev.clear()
+
     def dev(self, device, N: int, m: int) -> Dict[str, torch.Tensor]:
         """Device copies padded to the MSM tier N (cached per device, N)."""
         key = (torch.device(device), N)
@@ -204,6 +265,38 @@ class ProvingKey:
                 d["h16"] = t(self.h16_p128[None])
             self._dev[key] = d
         return d
+
+
+def _pack_query(curve: str, pts: Sequence[Optional[Tuple[int, int]]], device="cuda"):
+    """Host affine points (None = zero poly) -> packed numpy rows + mask."""
+    from ..kernels.msm_sorted import pack_points
+
+    q = P.BASE_FIELDS[curve].p
+    f = field_ops(q)
+    mask = np.asarray([pt is not None for pt in pts], dtype=bool)
+    X = f.encode([pt[0] if pt else 0 for pt in pts], device=device)
+    Y = f.encode([pt[1] if pt else 0 for pt in pts], device=device)
+    return pack_points(q, X, Y).cpu().numpy().astype(np.uint32), mask
+
+
+def _pack_query_dummied(curve: str, pts: Sequence[Optional[Tuple[int, int]]], device="cuda",
+                        dummy_rows: Optional[np.ndarray] = None):
+    """Host affine points (None = absent) -> z-aligned packed rows with
+    DISTINCT dummy points (i+1)*G at absent slots, mask (False = dummy),
+    and the (m, nl_r) Montgomery correction-weight rows (i+1 at dummies, 0
+    elsewhere). The dummies come from the fixed-base evaluator on `device`
+    (the reference multiplies them on the host), or from dummy_rows (row i
+    packing (i+1)*G, at least m rows); the rows are the same."""
+    mask = np.asarray([pt is not None for pt in pts], dtype=bool)
+    dummies = np.flatnonzero(~mask)
+    p128, _ = _pack_query(curve, [pt if pt is not None else (0, 0) for pt in pts], device)
+    if dummies.size and dummy_rows is not None:
+        p128[dummies] = dummy_rows[dummies]
+    elif dummies.size:
+        p128[dummies], _ = _fb_g1(curve, [int(i) + 1 for i in dummies], device)
+    weights = [0 if ok else i + 1 for i, ok in enumerate(mask)]
+    corr_w = field_ops(P.SCALAR_FIELDS[curve].p).encode(weights).numpy().astype(np.uint32)
+    return p128, mask, corr_w
 
 
 def _pack_from_device(curve: str, ax, ay, inf):
