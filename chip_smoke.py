@@ -42,7 +42,8 @@ Phases, each timed:
      inside the h stage, the corrections or the MSMs; then the h MSM of
      one proof's h scalars in both forms (shared-bucket and dense per
      window: equal as group elements, each timed), and that MSM's h16
-     walk, first merge walk, suffix and epilogue on its own plan and
+     walk (the plain version on two blocks of its plan, walk_blocks),
+     first merge walk, suffix and epilogue on its own plan and
      points against their plain versions (bit-equal, timed; each walk
      also at every S through the kernel's C entry point, bit-equal to the
      wrapper's output; the suffix at every k, each bit-equal to the plain
@@ -170,10 +171,28 @@ Phases, each timed:
      the r1cs and the radix; a column without terms must be None), and each point kernel's
      widest call at each width and stage against its plain version on the
      same inputs (bit-equal, timed, with its bound)
-  13. the kernels JSON line (each check record with its width in 32-bit
+  13. BW6-761 recursion (run_bw6_path): Groth16 over BW6-761 on the
+     stdlib's in-circuit BLS12-377 GM17 verifier
+     (port_artifacts/snark_gm17_bw6_761.out.gz: 123,507 constraints,
+     domain 2^17; its read and 4 witnesses by the port's interpreter in a
+     child process started with the script, beside the earlier phases):
+     setup, 3 proofs of the reference's test vector (output 1) with their
+     stage split, each verified by the BW6-761 pairing, a proof with C
+     swapped and one with its output flipped rejected; prove_batch of 4
+     witnesses (the vector and three with an inner input changed: outputs
+     1, 0, 0, 0), its proof 0 equal to the first proof byte for byte, all
+     verified in one weighted pairing product and a false one caught; the
+     launch counts set to 0 before setup and before the batch: the MSM
+     kernels at 24 limbs only, emul, ereduce_wide, the NTT and mulacc_walk
+     at 12 only, no plain version on the card; then every distinct walk,
+     suffix and epilogue call of one proof against its plain version (the
+     walks on their first 512 lanes), emul, ereduce_wide and the NTT at
+     the prove's and the batch's shapes, mulacc_walk at B = 1 and 4
+  14. the kernels JSON line (each check record with its width in 32-bit
      limbs and its curve; launches on every path: "launches" the main
      path's, for the point kernels the ceremony's; the Marlin path's also
-     per proof, the Nova path's also per step), the nvidia-smi line, and
+     per proof, the Nova path's also per step; "launches_bw6_761" and
+     "launches_bw6_761_batch" the recursion's), the nvidia-smi line, and
      the result line.
 
 Exits non-zero on any failure; with no CUDA device it raises before
@@ -184,15 +203,16 @@ Montgomery products these inputs need (a skipped position, or an add or a
 doubling with a point at infinity, costs none; an Fq2 product is 3 Fq
 products) times the 32-bit multiplies of one CIOS product at the kernel's
 width n (n x n a*b and n x n m*p products, low and high halves, plus n
-m = t0*n0: n(4n + 1), 264 at 8 limbs, 588 at 12), over the H100 SXM's
+m = t0*n0: n(4n + 1), 264 at 8 limbs, 588 at 12, 2,328 at 24), over the H100 SXM's
 32-bit integer multiply rate: 64 IMAD per SM per clock, half the float32
 FMA rate behind its published 67 TFLOP/s, i.e. 16.75e12/s at 700 W.
 The probe of phase 9 measures that rate; the constant stays the
 derivation, with the measured ratio beside it in PERF.md.
 Bytes: inputs read once and outputs written once, over 3.35 TB/s. Field
 elements cross every kernel boundary as int64 words of 16-bit limbs (128 B
-per element), point rows as int32 words of 16-bit limbs (64 B per Fq
-coordinate on BN254, 96 B on the BLS12 curves); the matvec walk's plan
+per element; 192 B over BW6-761's 377-bit r), point rows as int32 words
+of 16-bit limbs (64 B per Fq coordinate on BN254, 96 B on the BLS12
+curves, 192 B on BW6-761); the matvec walk's plan
 holds its coefficients as 32-bit limbs (32 B a record) and int32 columns
 and flags, and it writes the flushed runs only (mulacc_bytes).
 """
@@ -657,15 +677,17 @@ def check_field_kernels(fr, dev, seed: int = SEED + 2, curve: str = "bn128", tag
         rec["b"] = kind
         records["emul"].append(rec)
         del a, b, out, ref
+    nlr = nl_of(p)  # Fr's 16-bit limbs: 16, or 24 for BW6-761's 377-bit r
     for label, B, L in fr["ereduce_wide"]:
         label += tag
-        t = torch.as_tensor(nrng.integers(0, 1 << 31, (B, L, 16), dtype=np.int64)).to(dev)
+        t = torch.as_tensor(nrng.integers(0, 1 << 31, (B, L, nlr), dtype=np.int64)).to(dev)
         out = pf.ereduce_wide(p, t)
         torch.cuda.synchronize()
         ref, ms_p = host_ms(lambda: pf.ereduce_wide_plain(p, t))
         ms_k = cuda_ms(lambda: pf.ereduce_wide(p, t))
         records["ereduce_wide"].append(_record("ereduce_wide", "Fr", label, (B, L), (out,), (ref,),
-                                               ms_k, ms_p, 2 * B * L, 2 * ELEM_BYTES * B * L, curve=curve))
+                                               ms_k, ms_p, 2 * B * L, 2 * ELEM_BYTES * nlr // 16 * B * L,
+                                               nlr // 2, curve))
     n, ntt_cases = fr.get("ntt", (0, []))
     dom = domain_for_curve(curve, n) if ntt_cases else None
     for label, B, inverse in ntt_cases:
@@ -676,37 +698,41 @@ def check_field_kernels(fr, dev, seed: int = SEED + 2, curve: str = "bn128", tag
         ref, ms_p = host_ms(lambda: nk.fft_core_plain(dom, x, inverse))
         ms_k = cuda_ms(lambda: nk.fft_core(dom, x, inverse))
         mults = B * (n // 2) * dom.k
-        nbytes = 2 * ELEM_BYTES * B * n + 32 * (n - 1)
+        nbytes = 2 * ELEM_BYTES * nlr // 16 * B * n + 2 * nlr * (n - 1)
         records["ntt"].append(_record("ntt", "Fr", label, (B, n), (out,), (ref,), ms_k, ms_p,
-                                      mults, nbytes, curve=curve))
+                                      mults, nbytes, nlr // 2, curve))
     return records
 
 
-def path_walks(rdev):
+def path_walks(rdev, batches=(1, BATCH)):
     """The walk plans of the h stage's matvec on this R1CSDevice:
-    {B: plan} for B = 1 (prove) and BATCH (prove_batch), at the lanes
-    groth16.walk_lanes picks."""
+    {B: plan} for B = 1 (prove) and BATCH (prove_batch), or the given
+    batch sizes, at the lanes groth16.walk_lanes picks."""
     from zokrates_tpu_torch.ir.r1cs_device import build_mulacc_walk
     from zokrates_tpu_torch.schemes import groth16 as g
 
     L = sum(mat.rows_np.size for mat in (rdev.A, rdev.B, rdev.C))
-    return {B: build_mulacc_walk(rdev, g.walk_lanes(B, L)) for B in (1, BATCH)}
+    return {B: build_mulacc_walk(rdev, g.walk_lanes(B, L)) for B in batches}
 
 
-def mulacc_bytes(w, B: int, m: int, runs: int) -> int:
+def mulacc_bytes(w, B: int, m: int, runs: int, nl: int = 16) -> int:
     """Bytes the function of mulacc_walk must move on plan w for B proofs
-    of m variables, each read or written once: z (128 B a variable and
-    proof), each real record's packed coefficient, column and flag (40 B),
-    and the lazy sums of `runs` runs of the 3n rows (128 B a run and
-    proof). The plan's padded records and the slots of their runs and of
-    the padding are layout, not work, and are not counted."""
-    return ELEM_BYTES * B * m + (32 + 4 + 4) * w.n_records + ELEM_BYTES * B * runs
+    of m variables of nl 16-bit limbs, each read or written once: z (8*nl
+    B a variable and proof: 128 at 16 limbs), each real record's packed
+    coefficient (2*nl B), column and flag (4 B each), and the lazy sums of
+    `runs` runs of the 3n rows (8*nl B a run and proof). The plan's
+    padded records and the slots of their runs and of the padding are
+    layout, not work, and are not counted."""
+    elem = 8 * nl
+    return elem * B * m + (2 * nl + 4 + 4) * w.n_records + elem * B * runs
 
 
-def check_mulacc(rdev, dev, curve: str = "bn128", tag: str = "", near: float = 0.0):
+def check_mulacc(rdev, dev, curve: str = "bn128", tag: str = "", near: float = 0.0, batches=(1, BATCH),
+                 reference: bool = True):
     """mulacc_walk against its plain version, bit for bit, on the circuit's
-    walk plans: at B = 1 (prove) and B = 16 (prove_batch), each at the
-    lanes the path takes (path_walks) and at the reference's 1024, with
+    walk plans: at B = 1 (prove) and B = 16 (prove_batch; or `batches`),
+    each at the lanes the path takes (path_walks) and, with `reference`,
+    at the reference's 1024, with
     seeded canonical z mod the curve's r (a share `near` within 2^8 of r).
     Bound: one product a real record and proof; bytes as mulacc_bytes,
     with the runs of the 3n rows of whichever layout has fewer, the path's
@@ -717,21 +743,28 @@ def check_mulacc(rdev, dev, curve: str = "bn128", tag: str = "", near: float = 0
     from zokrates_tpu_torch.kernels import pallas_field as pf
 
     p = P.SCALAR_FIELDS[curve].p
+    nl = nl_of(p)
     m = rdev.num_variables
     nrng = np.random.default_rng(SEED + 3)
     records = []
     w_ref = build_mulacc_walk(rdev, REFERENCE_LANES)
-    for B, w_path in path_walks(rdev).items():
+    for B, w_path in path_walks(rdev, batches).items():
         z = fr_elems((B, m), nrng, p, near).to(dev)
-        for w in [w_path] + ([w_ref] if w_ref.M != w_path.M else []):
+        for w in [w_path] + ([w_ref] if reference and w_ref.M != w_path.M else []):
             label = f"B={B}" + ("" if w is w_path else f" {w.M} lanes") + tag
             out = pf.mulacc_walk(p, z, w)
             torch.cuda.synchronize()
-            ref, ms_p = host_ms(lambda: pf.mulacc_walk_plain(p, z, w))
+            # the plain version's products of a proof are its own: it runs
+            # on as many proofs at a time as keep its temporaries below 2^30
+            # limb words (sha256's B = 16 in one call; BW6-761's 4.7M
+            # records one proof at a time)
+            per = max(1, (1 << 30) // (w.n_records * nl * 8))
+            ref, ms_p = host_ms(lambda: torch.cat([pf.mulacc_walk_plain(p, z[b:b + per], w)
+                                                   for b in range(0, B, per)]))
             ms_k = cuda_ms(lambda: pf.mulacc_walk(p, z, w))
             runs = min(w_path.n_row_flush, w_ref.n_row_flush)
             rec = _record("mulacc_walk", "Fr", label, (B, w.K, w.M), (out,), (ref,), ms_k, ms_p,
-                          B * w.n_records, mulacc_bytes(w, B, m, runs), curve=curve)
+                          B * w.n_records, mulacc_bytes(w, B, m, runs, nl), nl // 2, curve)
             rec.update(lanes=w.M, slots=w.pos.numel(), n_flush=w.n_flush)
             records.append(rec)
             del out, ref
@@ -1310,8 +1343,7 @@ def clear_launches():
 
     for mod in (msm_sorted, pallas_field, ntt_pallas):
         mod.LAUNCHES.clear()
-    msm_sorted.WIDTH_LAUNCHES.clear()
-    pallas_field.WIDTH_LAUNCHES.clear()
+        mod.WIDTH_LAUNCHES.clear()
 
 
 def check_forgeries(scheme, vk, proof, curve: str):
@@ -1378,7 +1410,7 @@ def compare_h_msm(r1cs, wit, pk, dev):
     W, Wc, cfgH = ms._windows(p, cfg.c), ms.shared_window_count(p, 16), g._shared_h_cfg(cfg)
     if not g._use_h16(pk, p, N, dev):
         raise AssertionError(f"the pk carries no shared-bucket h query at the prover's tier N = {N}")
-    z = g._witness_limbs(r1cs, wit, p, 16)
+    z = g._witness_limbs(r1cs, wit, p, nl_of(p))
     Z = torch.as_tensor(np.pad(z, ((0, N - m), (0, 0))).astype(np.int64), device=dev)[None]
     h = g._h_stage(r1cs.curve, g._r1cs_device(r1cs, n, dev), Z)[0]
     h_pad = torch.nn.functional.pad(h[: n - 1], (0, 0, 0, N - (n - 1)))
@@ -1593,7 +1625,7 @@ def check_suffix_real(args, tag: str = "", width: int = 8, curve: str = "bn128",
 
 
 def check_walk_call(args, label: str, width: int = 8, curve: str = "bn128", sweep: bool = False,
-                    blocks: int = 0):
+                    blocks: int = 0, max_lanes: int = 0):
     """One captured walk call (`args` as the MSM passed them) against its
     plain version, bit for bit, timed; with `sweep`, also at every S
     (sweep_walk_split); with `blocks` (a safe or general walk), the plain
@@ -1602,8 +1634,10 @@ def check_walk_call(args, label: str, width: int = 8, curve: str = "bn128", swee
     a position at 12 limbs on the card, and cannot take a whole h16 walk
     in the time): the kernel's outputs of the whole call at those
     positions and lanes, and its collision flags, all zero; the kernel
-    time and the bound stay the whole call's. G1: a coordinate's rows are
-    its limbs."""
+    time and the bound stay the whole call's; with `max_lanes` too, the
+    blocks keep only the lanes below it (a lane's walk is its own: the
+    plain version of a 24-limb walk over 147,456 lanes takes minutes).
+    G1: a coordinate's rows are its limbs."""
     import torch
     from zokrates_tpu_torch.kernels import msm_sorted as ms
 
@@ -1617,6 +1651,10 @@ def check_walk_call(args, label: str, width: int = 8, curve: str = "bn128", swee
         if mode == "mixed" and not safe:
             raise ValueError("the block check takes a safe or general walk")
         checked = walk_blocks(fl, launch["S"], max(launch["S"], blocks))
+        if max_lanes:
+            every = np.arange(min(L, max_lanes))
+            checked = [(k0, k1, every if lanes is None else lanes[lanes < max_lanes]) for k0, k1, lanes in checked]
+            checked = [c for c in checked if c[2].size]
         got, want, ms_p = [out[1]], [torch.zeros_like(out[1])], 0.0
         for k0, k1, lanes in checked:
             li = slice(None) if lanes is None else torch.as_tensor(lanes, device=qrows.device)
@@ -1691,14 +1729,16 @@ def check_h16_real(calls):
     """The shared-bucket h MSM's mixed walk, its first merge walk, its
     suffix and its epilogue on one proof's own inputs (the plan and sorted
     points of its h scalars, as compare_h_msm captured them), each against
-    its plain version, bit for bit, and timed; each walk also at every S
+    its plain version, bit for bit, and timed (the mixed walk's plain
+    version on two blocks of its plan, walk_blocks, as BLS12-381's: over
+    all 512 positions it took 30 s); each walk also at every S
     (sweep_walk_split), the suffix at every k (check_suffix_real). The
     random-flag checks at the same shapes flush 25% of positions; the real
     plan's bucket runs are about 16 long."""
     walks = calls["walk"]
     records = {"walk_mixed": [], "walk_general": [], "suffix": [], "suffix_fold": []}
-    for args in (walks[0], walks[1]):
-        records["walk_" + args[3]].append(check_walk_call(args, "h16 real", sweep=True))
+    for args, blocks in ((walks[0], 32), (walks[1], 0)):
+        records["walk_" + args[3]].append(check_walk_call(args, "h16 real", sweep=True, blocks=blocks))
     records["suffix"].append(check_suffix_real(calls["suffix"][0]))
     records["suffix_fold"].append(check_fold_call(calls["suffix_fold"][0], "h16 MSM real"))
     return records
@@ -1826,7 +1866,7 @@ def run_batch_path(r1cs, pk, vk, wits, dev, smi):
 # kernels of the h stage: the wrapper's launch counter -> the kernel names
 # (substrings) the profiler records for its launches
 PROFILED_KERNELS = {"emul": ("emul_kernel",), "ntt": ("ntt_pass_kernel",),
-                    "mulacc_walk": ("::pack_kernel(", "::mulacc_kernel("), "ereduce_wide": ("ereduce",)}
+                    "mulacc_walk": ("::pack_kernel(", "::mulacc_kernel<"), "ereduce_wide": ("ereduce",)}
 
 
 def profile_batch(r1cs, pk, wits, dev, rs):
@@ -3421,6 +3461,263 @@ def run_mpc_path(dev, smi, records, bn, bls):
     return launches, result
 
 
+# ---------------------------------------------------------------------------
+# BW6-761 recursion: Groth16 over BW6-761 on the stdlib's in-circuit
+# BLS12-377 GM17 verifier
+# ---------------------------------------------------------------------------
+
+BW6_ARTIFACT = "snark_gm17_bw6_761.out.gz"
+BW6_VECTOR = os.path.join("tests", "corpus", "stdlib", "snark", "gm17.json")
+BW6_BATCH = 4                  # witnesses of the prove_batch call
+BW6_PROOFS = 3                 # B = 1 proofs: a warm-up and two timed
+BW6_KERNELS = ("walk_mixed", "walk_general", "suffix", "suffix_fold", "emul", "ereduce_wide", "ntt", "mulacc_walk")
+
+
+def load_bw6_recursion():
+    """The recursion circuit, the stdlib's snark/gm17 wrapper (a GM17 proof
+    over BLS12-377 with 3 inner inputs, verified inside a BW6-761 circuit
+    by the SnarkVerifyBls12377 directive) compiled for bw6_761
+    (port_artifacts/BW6_ARTIFACT, read with gzip), and its R1CS."""
+    import gzip
+
+    from zokrates_tpu_torch.ir.r1cs import r1cs_from_prog
+    from zokrates_tpu_torch.ir.serialize import deserialize
+
+    with gzip.open(os.path.join(ROOT, "port_artifacts", BW6_ARTIFACT), "rb") as f:
+        prog = deserialize(f.read())
+    return prog, r1cs_from_prog(prog)
+
+
+def bw6_witnesses(prog, count: int = BW6_BATCH):
+    """`count` witnesses of the recursion circuit from the port's
+    interpreter, through the ABI (port_artifacts/snark_gm17_bw6_761.abi.json):
+    witness 0 from the reference's test vector (BW6_VECTOR: a valid inner
+    proof of inputs [1, 2, 3], output 1), witness b > 0 the same with inner
+    input b - 1 raised by 1 (the inner proof fails: output 0, a witness as
+    valid as the first), each written in the binary witness format and
+    read back."""
+    import copy
+
+    from zokrates_tpu_torch.abi import encode_inputs
+    from zokrates_tpu_torch.fields.field import FIELDS
+    from zokrates_tpu_torch.interp.interpreter import Interpreter
+    from zokrates_tpu_torch.ir.witness import Witness
+
+    with open(os.path.join(ROOT, BW6_VECTOR)) as f:
+        values = json.load(f)["tests"][0]["input"]["values"]
+    with open(os.path.join(ROOT, "port_artifacts", BW6_ARTIFACT.replace(".out.gz", ".abi.json"))) as f:
+        abi = json.load(f)
+    field = FIELDS[prog.curve]
+    out = []
+    for b in range(count):
+        vals = copy.deepcopy(values)
+        if b:
+            inner = vals[0]["inputs"]
+            inner[b - 1] = "0x%064x" % (int(inner[b - 1], 16) + 1)
+        buf = io.BytesIO()
+        Interpreter().execute(prog, encode_inputs(vals, abi["inputs"], field.P)).write(buf, field)
+        out.append(Witness.read(io.BytesIO(buf.getvalue()), field))
+    return out
+
+
+def bw6_host_job():
+    """The recursion circuit's host work, run in a child process beside the
+    earlier phases: the artifact read (deserialize, r1cs_from_prog) and
+    BW6_BATCH witnesses by the interpreter. Returns (r1cs, witnesses,
+    {stage: seconds})."""
+    sys.path.insert(0, ROOT)
+    t0 = time.perf_counter()
+    prog, r1cs = load_bw6_recursion()
+    t1 = time.perf_counter()
+    wits = bw6_witnesses(prog)
+    return r1cs, wits, {"read": t1 - t0, "witnesses": time.perf_counter() - t1}
+
+
+def bw6_field_shapes(r1cs, rdev, walks, N: int):
+    """The scalar-field kernels' shapes in this circuit's prove at B = 1 and
+    in prove_batch at BW6_BATCH, as check_field_kernels takes them (emul,
+    ereduce_wide, the NTT; the matvec walk is check_mulacc's)."""
+    m = r1cs.num_variables
+    n = rdev.n
+    B = BW6_BATCH
+    chunk = min(N, 1 << 15)
+    return {"emul": [("to_mont", "Fr", 1, m, "row"), ("A*B", "Fr", 1, n, "strided"), ("coset", "Fr", 3, n, "shared"),
+                     ("1/Z, n^-1, from_mont", "Fr", 1, n, "row"), ("corrections", "Fr", 3, N, "shared"),
+                     (f"B={B} coset", "Fr", 3 * B, n, "shared"), (f"B={B} A*B", "Fr", B, n, "strided")],
+            "ereduce_wide": walk_reduce_shapes(walks) + [("corrections", 3, -(-N // chunk))],
+            "ntt": (n, [("forward x3", 3, False), ("inverse x3", 3, True), ("inverse x1", 1, True),
+                        (f"B={B} forward x{3 * B}", 3 * B, False), (f"B={B} inverse x{B}", B, True)])}
+
+
+def check_bw6_msm_calls(calls, tag: str):
+    """Each distinct walk, suffix and epilogue call of one BW6-761 proof
+    (`calls`, as Capture keeps them) against its plain version, bit for
+    bit, at 24 limbs: the walks on walk_blocks' blocks of their first
+    512 lanes (the plain version steps a position at a time over every
+    lane: the a/b1/l walk's 147,456 lanes take minutes), the suffix and the
+    epilogue whole. Returns check records by kernel."""
+    records = {"walk_mixed": [], "walk_general": [], "suffix": [], "suffix_fold": []}
+    seen = set()
+    for name, argl in calls.items():
+        for args in argl:
+            if name == "walk":
+                key = (name, args[3], tuple(args[1].shape))
+            elif name == "suffix":
+                key = (name, args[0].shape[0], args[0].shape[2])
+            else:
+                key = (name,) + tuple(args[2:5])
+            if key in seen:
+                continue
+            seen.add(key)
+            label = " ".join(str(v) for v in key[1:]) + tag
+            if name == "walk":
+                records["walk_" + args[3]].append(check_walk_call(args, label, 24, "bw6_761", blocks=32,
+                                                                  max_lanes=512))
+            elif name == "suffix":
+                records["suffix"].append(check_suffix_real(args, tag, 24, "bw6_761", label=label, sweep=False))
+            else:
+                records["suffix_fold"].append(check_fold_call(args, label, 24, "bw6_761"))
+    return records
+
+
+def run_bw6_path(dev, smi, records, pending):
+    """Groth16 over BW6-761 on the card on the recursion circuit at full
+    size (123,507 constraints, domain 2^17): the host work from the child
+    process main() started (`pending`); setup; BW6_PROOFS proofs of the
+    honest witness (a warm-up and two timed, each split into the prove's
+    stages) with the launch counts set to 0 just before setup and read
+    after the proofs: the MSM kernels at 24 limbs only, emul, ereduce_wide,
+    the NTT and mulacc_walk at 12, no plain version on the card; each proof
+    verified by the BW6-761 pairing, a proof with C swapped and one with
+    its output flipped rejected; prove_batch of BW6_BATCH distinct
+    witnesses (outputs 1, 0, 0, 0) with the counts set to 0 again, its
+    proof 0 equal to the first proof byte for byte (same witness, r and
+    s), all verified in one weighted pairing product and a false one
+    caught; then every kernel of one proof against its plain version at
+    the proof's shapes (check_bw6_msm_calls, check_field_kernels,
+    check_mulacc), appended to `records`. Returns the launch counts of the
+    proofs and of the batch, and the phase's results."""
+    import contextlib
+    import copy
+
+    import torch
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.kernels import msm_sorted, ntt_pallas, pallas_field
+    from zokrates_tpu_torch.schemes import groth16 as g
+    from zokrates_tpu_torch.schemes.types import Proof, fr_to_json
+
+    curve, tag = "bw6_761", " bw6_761"
+    log(f"== BW6-761 recursion: Groth16 on the stdlib's in-circuit BLS12-377 GM17 verifier "
+        f"(port_artifacts/{BW6_ARTIFACT})")
+    t0 = time.perf_counter()
+    r1cs, wits, host = pending.result(timeout=900)
+    nnz = [sum(len(row) for row in mat) for mat in (r1cs.A, r1cs.B, r1cs.C)]
+    log(f"  {r1cs.num_constraints} constraints, {r1cs.num_variables} variables ({r1cs.num_instance} instance), "
+        f"nonzeros {nnz}; read in {host['read']:.1f} s and {len(wits)} witnesses in {host['witnesses']:.1f} s of "
+        f"host Python in a child process started with the script (waited {time.perf_counter() - t0:.1f} s here)")
+    result = {"host_s": host, "nnz": nnz}
+    p = P.SCALAR_FIELDS[curve].p
+    rng = random.Random(SEED + 20)
+    rs = [((SEED + 3000 + 2 * i) % p, (SEED + 4001 + 2 * i) % p) for i in range(BW6_PROOFS + BW6_BATCH)]
+
+    clear_launches()
+    t0 = time.perf_counter()
+    pk, vk = g.setup(r1cs, rng=lambda: rng.randrange(1, p), device=dev)
+    torch.cuda.synchronize()
+    result["setup_s"] = time.perf_counter() - t0
+    log(f"  setup: {result['setup_s']:.2f} s (domain {pk.domain_size}, b2 rows {pk.b2_rows().shape[1]} words, h16 rows "
+        f"{None if pk.h16_p128 is None else pk.h16_p128.shape})")
+
+    proofs, walls, splits, calls = [], [], [], None
+    with PlainGuard() as guard, ShapeTally() as tally:
+        for i in range(BW6_PROOFS):
+            draws = iter(rs[i])
+            timings = {}
+            with Capture() if i == 1 else contextlib.nullcontext() as cap:
+                t0 = time.perf_counter()
+                proofs.append(g.prove(r1cs, pk, wits[0], rng=lambda: next(draws), device=dev, timings=timings))
+                walls.append(time.perf_counter() - t0)
+            if cap is not None:
+                calls = cap.calls
+            splits.append(timings)
+            log(f"  prove {i}: {walls[-1] * 1e3:.1f} ms  " + "  ".join(f"{k}={v * 1e3:.1f}ms"
+                                                                      for k, v in timings.items()))
+    launches = launch_counts()
+    widths = {**msm_sorted.WIDTH_LAUNCHES, **pallas_field.WIDTH_LAUNCHES, **ntt_pallas.WIDTH_LAUNCHES}
+    shapes = tally.report(BW6_PROOFS, "BW6-761 proof")
+    log(f"  launches over setup and {BW6_PROOFS} proofs: {launches}; by (kernel, 32-bit limbs) {widths}")
+    log(f"  plain versions on the card in the h stage, corrections and MSMs: {guard.calls or 0}")
+    if guard.calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors on the BW6-761 path: {guard.calls}")
+    check_launches(launches, BW6_PROOFS, "the BW6-761 path")
+    check_width(24, "the BW6-761 path")
+    field_widths = {k: v for k, v in widths.items() if k[0] in ("emul", "ereduce_wide", "ntt", "mulacc_walk")}
+    if any(k[1] != 12 for k in field_widths) or len(field_widths) != 4:
+        raise AssertionError(f"the BW6-761 prove's scalar-field kernels must launch at 12 limbs only: {widths}")
+    for i, proof in enumerate(proofs):
+        t0 = time.perf_counter()
+        ok = g.verify(vk, proof)
+        log(f"  verify {i}: {ok} ({time.perf_counter() - t0:.2f} s); output {int(proof.inputs[-1], 16)}")
+        if not ok or int(proof.inputs[-1], 16) != 1:
+            raise AssertionError(f"BW6-761 proof {i} failed to verify or its output is not 1")
+    if len({json.dumps(pr.points, sort_keys=True) for pr in proofs}) != len(proofs):
+        raise AssertionError("BW6-761 proofs with distinct r, s are not distinct")
+    swapped = Proof.from_json(copy.deepcopy(proofs[0].to_json()))  # to_json shares the proof's lists
+    swapped.points["c"] = proofs[0].points["a"]
+    flipped = Proof.from_json(copy.deepcopy(proofs[0].to_json()))
+    flipped.inputs[-1] = fr_to_json(0, curve)
+    for name, bad in (("C swapped for A", swapped), ("output flipped to 0", flipped)):
+        ok = g.verify(vk, bad)
+        log(f"  verify with {name}: {ok}")
+        if ok:
+            raise AssertionError(f"a BW6-761 proof with {name} verified")
+    steady = walls[1:]
+    result.update(prove_ms=[w * 1e3 for w in walls], split_ms=[{k: v * 1e3 for k, v in t.items()} for t in splits],
+                  shapes=shapes)
+    log(f"  steady state: {sum(steady) / len(steady) * 1e3:.1f} ms/proof over proofs 1..{len(walls) - 1} ({smi})")
+
+    log(f"== BW6-761 prove_batch, B={BW6_BATCH} distinct witnesses (outputs 1, 0, 0, 0)")
+    clear_launches()
+    draws = iter([v for pair in [rs[0]] + rs[BW6_PROOFS + 1:] for v in pair])
+    timings = {}
+    with PlainGuard() as guard:
+        t0 = time.perf_counter()
+        batch = g.prove_batch(r1cs, pk, wits, rng=lambda: next(draws), device=dev, timings=timings)
+        wall = time.perf_counter() - t0
+    launches_batch = launch_counts()
+    log(f"  prove_batch: {wall * 1e3:.1f} ms ({BW6_BATCH / wall:.3f} proofs/s)  "
+        + "  ".join(f"{k}={v * 1e3:.1f}ms" for k, v in timings.items()))
+    log(f"  launches {launches_batch}; plain versions on the card: {guard.calls or 0}")
+    if guard.calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors in the BW6-761 batch: {guard.calls}")
+    check_launches(launches_batch, 1, "the BW6-761 batch")
+    outs = [int(pr.inputs[-1], 16) for pr in batch]
+    if outs != [1] + [0] * (BW6_BATCH - 1):
+        raise AssertionError(f"the BW6-761 batch's outputs are {outs}, expected 1, 0, 0, 0")
+    if json.dumps(batch[0].to_json()) != json.dumps(proofs[0].to_json()):
+        raise AssertionError("prove_batch's proof 0 differs from prove() of the same witness, r and s")
+    check_batch_verifies(vk, batch, SEED + 21, "BW6-761 batch")
+    result.update(batch_ms=wall * 1e3, batch_split_ms={k: v * 1e3 for k, v in timings.items()})
+
+    log("== BW6-761 kernel checks (kernel vs plain version at the proof's shapes, bit-equal)")
+    t0 = time.perf_counter()
+    pk._dev.clear()  # the key's device copies: the plain versions below need the room
+    torch.cuda.empty_cache()
+    for name, recs in check_bw6_msm_calls(calls, tag).items():
+        records[name] += recs
+    del calls
+    n = pk.domain_size
+    rdev = g._r1cs_device(r1cs, n, dev)
+    walks = path_walks(rdev, (1, BW6_BATCH))
+    N = max(g._msm_tier(r1cs.num_variables), g._msm_tier(n - 1))
+    for got in (check_field_kernels(bw6_field_shapes(r1cs, rdev, walks, N), dev, SEED + 22, curve, tag, near=0.25),
+                check_mulacc(rdev, dev, curve, tag, near=0.25, batches=(1, BW6_BATCH), reference=False)):
+        for name, recs in got.items():
+            records[name] += recs
+    result["checks_s"] = time.perf_counter() - t0
+    log(f"  checks: {result['checks_s']:.1f} s")
+    return launches, launches_batch, result
+
 def main():
     import torch
 
@@ -3429,18 +3726,21 @@ def main():
     sys.path.insert(0, ROOT)
     dev = torch.device("cuda")
     t_all = time.perf_counter()
-    # Nova's setup is host Python alone: it runs in a child process beside
-    # the phases before Nova's, which takes it out of the script's wall time
-    # (a child that dies fails the result with BrokenProcessPool)
-    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as nova_setup:
-        pending_setup = nova_setup.submit(nova_setup_job)
+    # Nova's setup and the BW6-761 recursion circuit's read and witnesses
+    # are host Python alone: each runs in a child process beside the phases
+    # before its own, which takes it out of the script's wall time (a child
+    # that dies fails the result with BrokenProcessPool)
+    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as host_jobs:
+        pending_setup = host_jobs.submit(nova_setup_job)
+        pending_bw6 = host_jobs.submit(bw6_host_job)
         try:
-            run_all(dev, t_all, pending_setup)
+            run_all(dev, t_all, pending_setup, pending_bw6)
         finally:
             pending_setup.cancel()
+            pending_bw6.cancel()
 
 
-def run_all(dev, t_all, pending_setup):
+def run_all(dev, t_all, pending_setup, pending_bw6):
     """Every phase, then the kernels line, the card's line and the result."""
     import torch
     from zokrates_tpu_torch.kernels import cuda
@@ -3561,6 +3861,12 @@ def run_all(dev, t_all, pending_setup):
     log(f"  MPC phase: {mpc_result['phase_s']:.1f} s")
     print(json.dumps({"mpc": mpc_result}), flush=True)
 
+    t0 = time.perf_counter()
+    launches_bw6, launches_bw6_batch, bw6_result = run_bw6_path(dev, smi, records, pending_bw6)
+    bw6_result["phase_s"] = time.perf_counter() - t0
+    log(f"  BW6-761 phase: {bw6_result['phase_s']:.1f} s")
+    print(json.dumps({"bw6_761": bw6_result}), flush=True)
+
     kernels = []
     for name, recs in records.items():
         head = next(r for r in recs if (r["field"], r["mode"]) == MAIN_VARIANT[name])
@@ -3579,6 +3885,8 @@ def run_all(dev, t_all, pending_setup):
             "launches_marlin_per_proof": marlin_per_proof.get(name, 0),
             "launches_nova": launches_nova.get(name, 0),
             "launches_nova_per_step": nova_per_step.get(name, 0),
+            "launches_bw6_761": launches_bw6.get(name, 0),
+            "launches_bw6_761_batch": launches_bw6_batch.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None,

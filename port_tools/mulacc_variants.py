@@ -35,15 +35,15 @@ import sys
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FLUSH = "    flush_warp(flush != 0, acc, slot, stage_sums[warp], stage_slot[warp], ob);\n"
+FLUSH = "    flush_warp<N>(flush != 0, acc, slot, stage_sums[warp], stage_slot[warp], ob);\n"
 VARIANTS = {  # name -> ((old, new) replacements, output must equal the kernel's)
     "kernel": ((), True),
     "one proof": ((("constexpr int kMaxProofsPerBlock = 4;", "constexpr int kMaxProofsPerBlock = 1;"),), True),
-    "thread stores": (((FLUSH, "    if (flush) {\n      store_sums(ob + slot * kWords, acc);\n"
+    "thread stores": (((FLUSH, "    if (flush) {\n      store_sums<N>(ob + slot * kWords, acc);\n"
                                "      for (int i = 0; i < kWords; ++i) acc[i] = 0;\n    }\n"),), True),
     "no stores": (((FLUSH, FLUSH.replace("flush != 0,", "flush != 0 && acc[0] == 0xFFFFFFFFu,")),), False),
-    "no product": ((("const Fq8 prod = mont_mul(x, c, Pm);",
-                     "Fq8 prod;\n      for (int i = 0; i < NL; ++i) prod.v[i] = x.v[i] ^ c.v[i];"),), False),
+    "no product": ((("const Fq<N> prod = mont_mul(x, c, Pm);",
+                     "Fq<N> prod;\n      for (int i = 0; i < N; ++i) prod.v[i] = x.v[i] ^ c.v[i];"),), False),
 }
 
 
@@ -95,7 +95,7 @@ def main():
         if proc.returncode:
             raise RuntimeError(f"variant {name!r} did not build")
         f = ctypes.CDLL(so).zkt_mulacc_walk
-        f.argtypes = [Pp, Pp, LL, Pp, Pp, Pp, Pp, Pp, I, I, I, LL, I, I, Lm, Lm, U, Pp]
+        f.argtypes = [Pp, Pp, LL, Pp, Pp, Pp, Pp, Pp, I, I, I, LL, I, I, I, Lm, Lm, U, Pp]
         f.restype = I
         fns[name] = f
 
@@ -120,7 +120,7 @@ def main():
                 def run():
                     rc = f(Z.data_ptr(), zp.data_ptr(), Z.shape[1], w.cols_walk.data_ptr(),
                            w.coeff_packed.data_ptr(), w.flags_walk.data_ptr(), w.lane_base.data_ptr(),
-                           out.data_ptr(), B, w.K, w.M, w.n_records, w.n_flush, out.shape[1], pl, one, n0,
+                           out.data_ptr(), B, w.K, w.M, w.n_records, w.n_flush, out.shape[1], 8, pl, one, n0,
                            torch.cuda.current_stream().cuda_stream)
                     cuda.check(rc, "mulacc_walk variant")
                 run()

@@ -9,7 +9,9 @@
     Python-int oracle (they share the walks with Groth16's, held in
     test_torch_bls12.py);
   * _msm_g1 on BW6-761 (packed rows of 144 words) at N = 16 against the
-    oracle, and the CUDA wrappers' refusal of its 48-limb width.
+    oracle; the MSM kernels' CUDA wrappers take its 48-limb width (24
+    32-bit limbs) and refuse another (64 16-bit limbs), naming the widths
+    they take.
 
 Tolerance: exact equality (points).
 """
@@ -87,8 +89,10 @@ def test_gm17_bls12_381_proof_verifies(monkeypatch):
 
 def test_msm_g1_on_bw6_761():
     """_msm_g1 on BW6-761 (48-limb Fq, packed rows of 144 words) at N = 16
-    through the plain sorted MSM, against the oracle; the CUDA wrappers
-    refuse the 48-limb width, naming the widths they take."""
+    through the plain sorted MSM, against the oracle; the MSM kernels'
+    wrappers take the 48-limb width (24 32-bit limbs: p, R mod p and
+    -p^-1 mod 2^32 handed over) and refuse a 1024-bit field (64 16-bit
+    limbs), naming the widths they take."""
     curve = "bw6_761"
     grp = jg1(curve)
     rng = random.Random(9)
@@ -101,5 +105,8 @@ def test_msm_g1_on_bw6_761():
     assert (got.x, got.y) == (want.x, want.y)
     q = grp.q
     assert ms.pack_points(q, field_ops(q).encode([1]), field_ops(q).encode([2])).shape == (1, 144)
-    with pytest.raises(ValueError, match="16 or 24 16-bit limbs, got nl=48"):
-        cuda.field_params(q, None)
+    n, pl, one, n0, _ = cuda.field_params(q, None)
+    assert n == 24 and sum(int(v) << (32 * i) for i, v in enumerate(pl)) == q
+    assert sum(int(v) << (32 * i) for i, v in enumerate(one)) == (1 << 768) % q and (n0 * q) % (1 << 32) == (1 << 32) - 1
+    with pytest.raises(ValueError, match="16 or 24 or 48 16-bit limbs, got nl=64"):
+        cuda.field_params((1 << 1024) - 105, None)

@@ -432,10 +432,14 @@ def test_suffix_fold_kernel_12_limbs_equals_plain(dev, curve, ext, lw, W, L):
         assert torch.equal(g, w)
 
 
+# a 512-bit prime: 32 16-bit limbs, 16 32-bit limbs, a width no kernel has
+P512 = (1 << 512) - 569
+
+
 def test_msm_entry_points_refuse_unknown_widths(dev):
     """A limb count with no instantiation (10) launches nothing: each C
     entry point returns an error code, which cuda.check raises; and the
-    wrappers refuse a 48-limb field (BW6-761) before any launch."""
+    wrappers refuse a 512-bit field (32 16-bit limbs) before any launch."""
     from zokrates_tpu_torch.kernels import cuda
 
     lib = cuda.load()
@@ -454,11 +458,10 @@ def test_msm_entry_points_refuse_unknown_widths(dev):
         with pytest.raises(RuntimeError, match=f"{name} launch failed"):
             cuda.check(call(), name)
     torch.cuda.synchronize()
-    bw6 = g1_group("bw6_761").q
     before = dict(ms.LAUNCHES)
-    with pytest.raises(ValueError, match="16 or 24 16-bit limbs, got nl=48"):
-        ms.walk(torch.zeros((1, 96, 4), dtype=torch.int32, device=dev),
-                torch.zeros((1, 4), dtype=torch.int32, device=dev), bw6, "mixed", True)
+    with pytest.raises(ValueError, match="16 or 24 or 48 16-bit limbs, got nl=32"):
+        ms.walk(torch.zeros((1, 64, 4), dtype=torch.int32, device=dev),
+                torch.zeros((1, 4), dtype=torch.int32, device=dev), P512, "mixed", True)
     assert dict(ms.LAUNCHES) == before
 
 
@@ -572,14 +575,14 @@ def test_ereduce_wide_kernel_equals_plain(dev, B, L, top):
 
 def test_ereduce_entry_point_refuses_unknown_widths(dev):
     """zkt_ereduce_wide launches nothing for a limb count it has no
-    instantiation of (12)."""
+    instantiation of (16)."""
     from zokrates_tpu_torch.kernels import cuda
 
     lib = cuda.load()
     _, pl, one, n0, _ = cuda.field_params(R_MOD, None, cuda.NL32_FIELD)
     buf = torch.zeros(1 << 12, dtype=torch.int64, device=dev)
     p = buf.data_ptr()
-    rc = lib.zkt_ereduce_wide(p, p, 4, 12, pl, pl, one, n0, torch.cuda.current_stream(dev).cuda_stream)
+    rc = lib.zkt_ereduce_wide(p, p, 4, 16, pl, pl, one, n0, torch.cuda.current_stream(dev).cuda_stream)
     with pytest.raises(RuntimeError, match="ereduce_wide launch failed"):
         cuda.check(rc, "ereduce_wide")
     torch.cuda.synchronize()
@@ -616,7 +619,7 @@ def test_ntt_entry_point_refuses_bad_plans(dev):
     twice = (type(good))(*good)
     twice[1] = twice[0]  # stage 0's thread bits 0 and 1 on one bit of E
     for tpos, log_slots in ((twice, 0), (good, 3)):
-        rc = lib.zkt_ntt_pass(p, p, p, p, 1, 8, 0, 8, log_slots, tpos, pl, one, n0, stream)
+        rc = lib.zkt_ntt_pass(p, p, p, p, 1, 8, 0, 8, log_slots, tpos, 8, pl, one, n0, stream)
         with pytest.raises(RuntimeError, match="ntt launch failed"):
             cuda.check(rc, "ntt")
     torch.cuda.synchronize()
@@ -732,7 +735,7 @@ def test_mulacc_entry_point_refuses_bad_plans(dev):
     p = buf.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     for K, M in ((4, 200), ((1 << 16) + 1, 128)):
-        rc = lib.zkt_mulacc_walk(p, p, 4, p, p, p, p, p, 1, K, M, 10, 1, 8, pl, one, n0, stream)
+        rc = lib.zkt_mulacc_walk(p, p, 4, p, p, p, p, p, 1, K, M, 10, 1, 8, 8, pl, one, n0, stream)
         with pytest.raises(RuntimeError, match="mulacc_walk launch failed"):
             cuda.check(rc, "mulacc_walk")
     torch.cuda.synchronize()
@@ -1275,3 +1278,239 @@ def test_msm_g1_pasta_at_2_15_equals_oracle(dev, curve):
     for k in range(8):
         want = want + base[k] * (sum(s for kk, s in zip(ks, sc) if kk == k) % grp.r)
     assert (got.x, got.y) == (want.x, want.y)
+
+
+# ---------------------------------------------------------------------------
+# BW6-761: the MSM kernels at 24 limbs over Fq (both of its groups), and
+# ereduce_wide, mulacc_walk and the NTT at 12 over its 377-bit r
+# ---------------------------------------------------------------------------
+
+BW6 = "bw6_761"
+R_BW6 = g1_group(BW6).r
+
+
+def _rows_bw6(group, seed, n=6):
+    """Rows of BW6-761's G1 or G2 (both over its 761-bit Fq, 48 16-bit
+    limbs): affine rows of n seeded points and their negatives; Jacobian
+    rows of the same with Z within 2^8 of q on every other row, a point at
+    infinity last. Returns (affine, jac, q)."""
+    rng = random.Random(seed)
+    grp = g1_group(BW6) if group == "G1" else g2_group(BW6)
+    q = grp.q
+    pts = [grp.generator() * rng.randrange(1, grp.r) for _ in range(n)]
+    pts += [-p for p in pts]
+    f = field_ops(q)
+
+    def enc(vals):
+        return f.encode(vals).reshape(len(vals), -1).to(torch.int32)
+
+    X, Y, Z = [], [], []
+    for i, p in enumerate(pts):
+        z = q - rng.randrange(1, 1 << 8) if i % 2 == 0 else rng.randrange(1, q)
+        X.append(p.x * z * z % q)
+        Y.append(p.y * z ** 3 % q)
+        Z.append(z)
+    X.append(pts[0].x)
+    Y.append(pts[0].y)
+    Z.append(0)
+    affine = torch.cat([enc([p.x for p in pts]), enc([p.y for p in pts])], 1)
+    return affine, torch.cat([enc(X), enc(Y), enc(Z)], 1), q
+
+
+@pytest.mark.parametrize("mode,safe", [("mixed", False), ("mixed", True), ("general", True)],
+                         ids=["mixed-unsafe", "mixed-safe", "general"])
+@pytest.mark.parametrize("group", ["G1", "G2"])
+def test_walk_kernel_24_limbs_at_every_split(dev, group, mode, safe):
+    """The walk at BW6-761's Fq (24 32-bit limbs) through the wrapper (one
+    launch, counted, at width 24) and through its C entry point at S = 1,
+    3, 7, 16 and K, each bit-equal to walk_plain, over the flag patterns
+    of test_torch_walk_split; a doubling planted in lane 0."""
+    from test_torch_walk_split import _patterns
+
+    from zokrates_tpu_torch.kernels import cuda
+
+    K, L = 24, 160
+    affine, jac, q = _rows_bw6(group, seed=110 + (group == "G2"))
+    rng = np.random.default_rng(111)
+    flags = ((rng.random((K, L)) < 0.15).astype(np.int32) | ((rng.random((K, L)) < 0.1).astype(np.int32) << 1))
+    cols = list(_patterns(K, rng).values())
+    flags[:, 1 : 1 + len(cols)] = np.stack(cols, 1)
+    src = affine if mode == "mixed" else jac
+    idx = rng.integers(0, src.shape[0], (K, L))
+    flags[:2, 0] = 0
+    idx[:2, 0] = 0
+    qrows = src[torch.as_tensor(idx)].permute(0, 2, 1).contiguous().to(dev)
+    fl = torch.as_tensor(flags).to(dev)
+    ref_out, ref_coll = ms.walk_plain(qrows, fl, q, mode, safe)
+    assert bool(ref_coll[0]) == (mode == "mixed" and not safe)
+    before = ms.WIDTH_LAUNCHES[("walk_" + mode, 24)]
+    out, coll = ms.walk(qrows, fl, q, mode, safe)
+    torch.cuda.synchronize()
+    assert ms.WIDTH_LAUNCHES[("walk_" + mode, 24)] == before + 1
+    assert torch.equal(out, ref_out) and torch.equal(coll, ref_coll)
+    lib = cuda.load()
+    nl, pl, one, n0, babs = cuda.field_params(q, None)
+    assert nl == 24
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for S in (1, 3, 7, 16, K):
+        out = torch.full_like(ref_out, -1)
+        coll = torch.zeros(L, dtype=torch.int32, device=dev)
+        rc = lib.zkt_msm_wide_walk(qrows.data_ptr(), fl.data_ptr(), out.data_ptr(), coll.data_ptr(), K, L, S,
+                                   nl, 0, int(mode == "mixed"), int(safe), pl, one, n0, babs, stream)
+        cuda.check(rc, "walk")
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref_out), f"S={S}"
+        assert torch.equal(coll, ref_coll), f"S={S}"
+
+
+@pytest.mark.parametrize("Lb", [1, 3, 32])
+def test_suffix_kernel_24_limbs_at_every_split(dev, Lb):
+    """The suffix walk at BW6-761's Fq on 203 lanes through the wrapper and
+    through its C entry point at every k that divides Lb, each bit-equal to
+    suffix_plain at that k; lanes 0-2 planted: the same point in both
+    slots, all at infinity, A = -B."""
+    from zokrates_tpu_torch.kernels import cuda
+
+    _, jac, q = _rows_bw6("G1", seed=112)
+    inf, n = jac.shape[0] - 1, 6
+    rng = np.random.default_rng(113 + Lb)
+    M = 203
+    ia = rng.integers(0, jac.shape[0], (Lb, M))
+    ib = rng.integers(0, jac.shape[0], (Lb, M))
+    ia[:, 0] = ib[:, 0] = 2
+    ia[:, 1] = ib[:, 1] = inf
+    ia[:, 2] %= n
+    ib[:, 2] = ia[:, 2] + n
+    a = jac[torch.as_tensor(ia)].permute(0, 2, 1).contiguous().to(dev)
+    b = jac[torch.as_tensor(ib)].permute(0, 2, 1).contiguous().to(dev)
+    want = {k: ms.suffix_plain(a, b, q, None, k) for k in (1, 2, 4, 8, 16, 32) if Lb % k == 0}
+    before = ms.WIDTH_LAUNCHES[("suffix", 24)]
+    out = ms.suffix(a, b, q)
+    torch.cuda.synchronize()
+    assert ms.WIDTH_LAUNCHES[("suffix", 24)] == before + 1
+    assert torch.equal(out, want[ms.suffix_split(Lb, M)])
+    lib = cuda.load()
+    nl, pl, one, n0, babs = cuda.field_params(q, None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for k, ref in want.items():
+        got = torch.full_like(out, -1)
+        rc = lib.zkt_msm_wide_suffix(a.data_ptr(), b.data_ptr(), got.data_ptr(), Lb, M, k, nl, 0, pl, one, n0,
+                                     babs, stream)
+        cuda.check(rc, "suffix")
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), f"k={k}"
+
+
+@pytest.mark.parametrize("lw,W,L", [(1, 3, 5), (8, 3, 5), (128, 2, 1), (1024, 1, 32)])
+def test_suffix_fold_kernel_24_limbs_equals_plain(dev, lw, W, L):
+    """The epilogue at BW6-761's Fq, up to the shared-bucket h MSM's one
+    window of 1024 lanes (the fold tree's 512 lane sums: 144 KB of shared
+    memory), about a fifth of acc and tot at infinity."""
+    _, jac, q = _rows_bw6("G2", seed=114)
+    rng = np.random.default_rng(115 + lw)
+    inf = jac.shape[0] - 1
+    idx = rng.integers(0, jac.shape[0], (2, W * lw))
+    idx[rng.random((2, W * lw)) < 0.2] = inf
+    out6 = torch.cat([jac[torch.as_tensor(idx[0])], jac[torch.as_tensor(idx[1])]], 1).T.contiguous().to(dev)
+    before = ms.LAUNCHES["suffix_fold"]
+    got = ms.suffix_fold(out6, q, W, lw, L)
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["suffix_fold"] == before + 1
+    for g, w in zip(got, ms.suffix_fold_plain(out6, q, W, lw, L)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("B,L,top", [(2, 777, 1 << 31), (3, 1, 1 << 31), (2, 777, 1 << 47), (1, 128, 1 << 31),
+                                     (1, 129, 1 << 31), (4, 98304, 1 << 31)])
+def test_ereduce_wide_kernel_12_limbs_equals_plain(dev, B, L, top):
+    """ereduce_wide over BW6-761's r (24 16-bit limbs): ragged L, one tile
+    and one thread an element (128), two tiles (129), the h stage's row
+    sums of 3 x 2^15 at B = 4, sums up to 2^31 and 2^47."""
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+
+    rng = np.random.default_rng(116)
+    t = torch.as_tensor(rng.integers(top - (1 << 20), top, (B, L, 24), dtype=np.int64))
+    t[0, :5] = top - 1
+    t[-1, -1] = 0
+    t = t.to(dev)
+    before = pf.LAUNCHES["ereduce_wide"]
+    out = pf.ereduce_wide(R_BW6, t)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES["ereduce_wide"] == before + 1
+    assert torch.equal(out, pf.ereduce_wide_plain(R_BW6, t))
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("size,lanes", [("toy", 1024), ("toy", 2048), ("large", 4096), ("large", 32768)])
+def test_mulacc_walk_kernel_12_limbs_equals_plain(dev, B, size, lanes):
+    """The matvec walk over BW6-761's r: the toy's 3000 records and a
+    plan of 600,000 records over 3 x 2^15 rows and 40,000 variables (runs
+    that end at row changes and lane ends, lanes of padding at 32768); B =
+    1 and 4 (four proofs a block)."""
+    from zokrates_tpu_torch.ir.r1cs_device import build_mulacc_walk
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+
+    n, m, L = (64, 40, 3000) if size == "toy" else (1 << 15, 40000, 600000)
+    w = build_mulacc_walk(_walk_dev(dev, n, m, L, 130 + lanes, R_BW6), lanes)
+    z = _elems((B, m), 131, R_BW6).to(dev)
+    before = pf.LAUNCHES["mulacc_walk"]
+    out = pf.mulacc_walk(R_BW6, z, w)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES["mulacc_walk"] == before + 2
+    assert torch.equal(out, pf.mulacc_walk_plain(R_BW6, z, w))
+    assert not out[:, w.n_flush:].any()
+
+
+@pytest.mark.parametrize("logn,batch", [(1, 1), (2, 3), (5, 2), (10, 1), (11, 3), (15, 3), (17, 1), (17, 4)])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_ntt_kernel_12_limbs_equals_plain(dev, logn, batch, inverse):
+    """The NTT pass kernel over BW6-761's r (12 32-bit limbs): blocks of
+    many tiles and padding past the batch, one pass, two passes (2^11 to
+    2^17, the recursion circuit's domain at B = 1 and 4)."""
+    from zokrates_tpu_torch.kernels import ntt_pallas as nk
+    from zokrates_tpu_torch.kernels.ntt import domain_for_curve
+
+    dom = domain_for_curve(BW6, 1 << logn)
+    x = _elems((batch, 1 << logn), 117 + logn, R_BW6).to(dev)
+    before = nk.LAUNCHES["ntt"]
+    out = nk.fft_core(dom, x, inverse)
+    torch.cuda.synchronize()
+    assert nk.LAUNCHES["ntt"] == before + len(nk.pass_plan(logn, batch))
+    assert torch.equal(out, nk.fft_core_plain(dom, x, inverse))
+
+
+def test_wrappers_refuse_unbuilt_widths(dev):
+    """A CUDA tensor at a width no kernel is built for raises before any
+    launch: 16 32-bit limbs (a 512-bit field) in the walk, the suffix, the
+    epilogue, ereduce_wide, emul and the NTT's field check; 24 limbs over
+    Fq2 (no curve has one) at the wide walk's C entry point, and 24 limbs
+    at the 8- and 12-limb one (msm_sorted.cu's)."""
+    from zokrates_tpu_torch.kernels import cuda
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+
+    before = (dict(ms.LAUNCHES), dict(pf.LAUNCHES))
+    z32 = torch.zeros((1, 96, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="got nl=32"):
+        ms.suffix(z32, z32, P512)
+    with pytest.raises(ValueError, match="got nl=32"):
+        ms.suffix_fold(torch.zeros((192, 4), dtype=torch.int32, device=dev), P512, 1, 4, 1)
+    t = torch.zeros((1, 3, 32), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="got nl=32"):
+        pf.ereduce_wide(P512, t)
+    with pytest.raises(ValueError, match="got nl=32"):
+        pf.emul(P512, t, t)
+    with pytest.raises(ValueError, match="16 or 24 16-bit limbs, got nl=48"):
+        cuda.field_params(g1_group(BW6).q, None, cuda.NL32_FIELD)
+    assert (dict(ms.LAUNCHES), dict(pf.LAUNCHES)) == before
+    lib = cuda.load()
+    q = g1_group(BW6).q
+    nl, pl, one, n0, _ = cuda.field_params(q, None)
+    buf = torch.zeros(1 << 16, dtype=torch.int32, device=dev)
+    p = buf.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for fn, ext in ((lib.zkt_msm_wide_walk, 1), (lib.zkt_msm_walk, 0)):
+        rc = fn(p, p, p, p, 1, 1, 1, nl, ext, 1, 1, pl, one, n0, 1, stream)
+        with pytest.raises(RuntimeError, match="walk launch failed"):
+            cuda.check(rc, "walk")
+    torch.cuda.synchronize()
+

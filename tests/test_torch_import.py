@@ -72,3 +72,13 @@ def test_sources_import_no_jax(path):
         for n in names:
             top = n.split(".")[0]
             assert top not in ("jax", "jaxlib", "zokrates_tpu"), (path, node.lineno, n)
+
+
+def test_walks_cover_the_recursion_modules():
+    """Both checks reach the in-circuit verifier's modules (embed/) and the
+    BW6-761 pairing."""
+    new = ["zokrates_tpu_torch.embed.builder", "zokrates_tpu_torch.embed.tower_sym",
+           "zokrates_tpu_torch.embed.snark_verify", "zokrates_tpu_torch.ec.pairing_bw6"]
+    assert set(new) <= set(_modules())
+    paths = {os.path.relpath(p, ROOT) for p in _sources()}
+    assert {n.replace(".", "/") + ".py" for n in new} <= paths

@@ -26,7 +26,7 @@ from zokrates_tpu.interp.interpreter import Interpreter as JInterpreter
 from zokrates_tpu_torch.abi import encode_inputs as t_encode
 from zokrates_tpu_torch.fields.field import FIELDS as T_FIELDS
 from zokrates_tpu_torch.interp.interpreter import Interpreter as TInterpreter
-from zokrates_tpu_torch.interp.interpreter import SolverError, execute_solver
+from zokrates_tpu_torch.interp.interpreter import execute_solver
 from zokrates_tpu_torch.ir.program import Solver
 from zokrates_tpu_torch.ir.serialize import deserialize as t_deserialize
 
@@ -77,5 +77,15 @@ def test_toy_witness_matches_reference():
 
 
 def test_bw6_verifier_solver_raises():
-    with pytest.raises(SolverError):
-        execute_solver(Solver("SnarkVerifyBls12377", 1), [0] * 10, T_FIELDS["bn128"])
+    """The SnarkVerifyBls12377 solver (supported since the port has
+    embed/) raises on a malformed directive input, as the JAX package's
+    does: one inner input takes 8 proof and 20 verification-key wires, and
+    10 inputs leave the key one wire. (tests/test_torch_bw6.py holds its
+    assignments on the stdlib's test vector.)"""
+    from zokrates_tpu.interp.interpreter import execute_solver as j_execute_solver
+    from zokrates_tpu.ir.program import Solver as JSolver
+
+    with pytest.raises(AssertionError):
+        j_execute_solver(JSolver("SnarkVerifyBls12377", 1), [0] * 10, J_FIELDS["bw6_761"])
+    with pytest.raises(AssertionError):
+        execute_solver(Solver("SnarkVerifyBls12377", 1), [0] * 10, T_FIELDS["bw6_761"])

@@ -7,7 +7,8 @@
 // _mixed_add_inline and msm_sorted._double_inline). Elements are N limbs
 // of 32 bits, a template parameter: N = 8 for BN254's fields and the
 // 255-bit scalar fields of BLS12-381 and BLS12-377, N = 12 for the BLS12
-// base fields; products are native 32x32->64. The Montgomery radix is
+// base fields and BW6-761's scalar field, N = 24 for BW6-761's base field;
+// products are native 32x32->64. The Montgomery radix is
 // R = 2^(32N), the same R as the public 2N x 16-bit limb layout, so
 // Montgomery values cross the boundary unchanged.
 //
@@ -49,9 +50,9 @@ struct FieldParams {
   int beta_abs;  // Fq2 non-residue magnitude: u^2 = -beta_abs
 };
 
-// The one width of the elementwise, NTT, matvec, point and probe kernels:
-// the 254/255-bit fields (BN254's base and scalar fields, the BLS12
-// curves' scalar fields).
+// The width of the multiply-rate probe (probe.cu): the 254/255-bit fields
+// (BN254's base and scalar fields, the BLS12 curves' scalar fields). The
+// other kernels are templates over N.
 constexpr int NL = 8;
 using Fq8 = Fq<NL>;
 using FieldParams8 = FieldParams<NL>;

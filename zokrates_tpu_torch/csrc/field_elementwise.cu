@@ -5,9 +5,10 @@
 // product a*b*R^-1 mod p per element, at N = 8 or 12 32-bit limbs.
 // ereduce_kernel replaces its lazy-sum reduction (_ereduce_call /
 // ereduce_wide): a carry sweep of the column sums gives 16-bit limbs res
-// and a carry out, and res*R + carry*(2^256*R mod p), each part through
+// and a carry out, and res*R + carry*(2^(32N)*R mod p), each part through
 // one Montgomery product, folds the value back into the canonical residue
-// in [0, p).
+// in [0, p); at N = 8 and at N = 12 (BW6-761's scalar field: the walk
+// matvec's sums of its Groth16 prover).
 //
 // What bounds them on an H100: bytes. The public tensors are int64 words
 // holding 16-bit limbs (the layout of the plain field ops), 16N B per
@@ -388,10 +389,12 @@ int zkt_emul(const int64_t* a, const int64_t* b, int64_t* out, long long B, long
 }
 
 // t, out: `total` packed elements of n32 32-bit limbs (2*n32 int64 words
-// each, 16-byte aligned); r2 = R^2 mod p as n32 32-bit limbs. n32 is 8.
+// each, 16-byte aligned); r2 = R^2 mod p as n32 32-bit limbs. n32 is 8 or
+// 12.
 int zkt_ereduce_wide(const int64_t* t, int64_t* out, long long total, int n32, const uint32_t* r2,
                      const uint32_t* p, const uint32_t* one, uint32_t n0, void* stream) {
   if (n32 == 8) return launch_ereduce<8>(t, out, total, r2, p, one, n0, (cudaStream_t)stream);
+  if (n32 == 12) return launch_ereduce<12>(t, out, total, r2, p, one, n0, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 

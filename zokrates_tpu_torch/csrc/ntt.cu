@@ -7,9 +7,12 @@
 // (batch, n) Montgomery elements.
 //
 // What bounds it on an H100: operations, n/2 Montgomery products per stage
-// (264 32-bit multiplies each) against 128 B read and 128 B written per
-// element once; each pass past the first adds a round trip of 32 B per
-// element through device memory.
+// (264 32-bit multiplies each at N = 8 limbs, 588 at N = 12) against 16N B
+// read and 16N B written per element once; each pass past the first adds a
+// round trip of 4N B per element through device memory.
+//
+// Widths: N = 8 32-bit limbs (the 254/255-bit scalar fields) and N = 12
+// (BW6-761's 377-bit scalar field); the C entry point takes N.
 //
 // Design. The TPU kernel kept a whole 2^15 transform in VMEM for all 15
 // stages; a block here has at most 227 KB of shared memory, so a transform
@@ -22,7 +25,8 @@
 // transforms or high positions, so one copy of the tile's twiddles in
 // shared memory serves them all; slots past the batch are padding, never
 // read or written. The block's E = slots * T elements sit in shared memory
-// as 8 rows of 32-bit limbs.
+// as N rows of 32-bit limbs (at N = 12 and 1024 elements, with their
+// twiddles, 96 KB of the 227 KB a block may hold).
 //
 // Each thread holds the two elements of one butterfly a stage, read from
 // and written back to shared memory, with a barrier after each stage. A
@@ -49,8 +53,8 @@
 //
 // The first pass gathers the int64 16-bit-limb input in bit-reversed order
 // (the reference left the bit reversal to XLA); passes between them write
-// and read an element-major 32-bit scratch (batch, n, 8) in place, 32 B an
-// element, a whole sector whatever the tile's stride; the last pass writes
+// and read an element-major 32-bit scratch (batch, n, N) in place, 4N B an
+// element (a whole sector at N = 8) whatever the tile's stride; the last pass writes
 // int64 limbs. Every butterfly computes the plain version's u = x_o*w,
 // x_e + u, x_e - u on canonical residues, stage after stage, so kernel and
 // plain outputs agree limb for limb.
@@ -105,29 +109,30 @@ __device__ __forceinline__ void staged_copy(int count, Load load, Store store) {
   }
 }
 
-// Stage t of the pass over the block's elements in shared memory (xs: 8
-// limb rows of stride LS; ws: the tile's twiddles, 8 rows of stride LT):
+// Stage t of the pass over the block's elements in shared memory (xs: N
+// limb rows of stride LS; ws: the tile's twiddles, N rows of stride LT):
 // each thread the butterfly of its element E0 (bit t clear) and E0 + 2^t.
+template <int N>
 __device__ __forceinline__ void ntt_stage(uint32_t* xs, const uint32_t* ws, int LS, int LT, int t, int ntid,
-                                          const int* tpos, const FieldParams8& P) {
+                                          const int* tpos, const FieldParams<N>& P) {
   int e0 = 0;
 #pragma unroll
   for (int k = 0; k < kMaxTidBits; ++k)
     if (k < ntid) e0 |= ((threadIdx.x >> k) & 1) << tpos[k];
   const int i0 = sw(e0), i1 = sw(e0 | (1 << t));
   const int ti = sw((1 << t) | (e0 & ((1 << t) - 1)));
-  Fq8 xe, xo, w;
+  Fq<N> xe, xo, w;
 #pragma unroll
-  for (int l = 0; l < NL; ++l) {
+  for (int l = 0; l < N; ++l) {
     xe.v[l] = xs[l * LS + i0];
     xo.v[l] = xs[l * LS + i1];
     w.v[l] = ws[l * LT + ti];
   }
-  const Fq8 u = mont_mul(xo, w, P);
-  const Fq8 ye = add(xe, u, P);
-  const Fq8 yo = sub(xe, u, P);
+  const Fq<N> u = mont_mul(xo, w, P);
+  const Fq<N> ye = add(xe, u, P);
+  const Fq<N> yo = sub(xe, u, P);
 #pragma unroll
-  for (int l = 0; l < NL; ++l) {
+  for (int l = 0; l < N; ++l) {
     xs[l * LS + i0] = ye.v[l];
     xs[l * LS + i1] = yo.v[l];
   }
@@ -146,61 +151,65 @@ __device__ __forceinline__ bool locate(const NttPass& pp, int E, size_t& bat, si
 }
 
 // src: int64 16-bit limbs (the first pass, bit-reversed gather) or the
-// 32-bit scratch; dst: int64 limbs (the last pass) or the scratch.
+// 32-bit scratch; dst: int64 limbs (the last pass) or the scratch. An
+// element is N limbs, kQ = N/4 16-byte quads of the scratch or the
+// twiddle table.
+template <int N>
 __global__ void __launch_bounds__(kMaxElems / 2)
     ntt_pass_kernel(const void* src, void* dst, const uint32_t* __restrict__ tw, bool in_wide,
-                    bool out_wide, NttPass pp, FieldParams8 P) {
+                    bool out_wide, NttPass pp, FieldParams<N> P) {
+  constexpr int kQ = N / 4;
   extern __shared__ uint32_t ntt_smem[];
   const int T = 1 << pp.S;
   const int nE = T << pp.log_slots;
-  const int LS = nE + 4, LT = T + 4;  // row strides: 4 mod 32 spreads a chunk's 8 limbs over banks
+  const int LS = nE + 4, LT = T + 4;  // row strides: 4 mod 32 spreads a chunk's limbs over banks
   uint32_t* xs = ntt_smem;
-  uint32_t* ws = ntt_smem + NL * LS;
+  uint32_t* ws = ntt_smem + N * LS;
   const size_t n = (size_t)1 << pp.logn;
 
   if (in_wide) {  // one item per (element, limb): 16 B of int64 words
     const int64_t* x = static_cast<const int64_t*>(src);
     staged_copy<longlong2>(
-        nE * NL,
+        nE * N,
         [&](int i, longlong2& w) {
           size_t bat, g;
-          if (!locate(pp, i >> 3, bat, g)) return false;
+          if (!locate(pp, i / N, bat, g)) return false;
           const size_t gs = __brevll(g) >> (64 - pp.logn);  // bit-reversed source
-          w = __ldg(reinterpret_cast<const longlong2*>(x + (bat * n + gs) * (2 * NL)) + (i & 7));
+          w = __ldg(reinterpret_cast<const longlong2*>(x + (bat * n + gs) * (2 * N)) + i % N);
           return true;
         },
-        [&](int i, const longlong2& w) { xs[(i & 7) * LS + sw(i >> 3)] = (uint32_t)w.x | ((uint32_t)w.y << 16); });
-  } else {  // one item per half element: 16 B of 32-bit limbs
+        [&](int i, const longlong2& w) { xs[(i % N) * LS + sw(i / N)] = (uint32_t)w.x | ((uint32_t)w.y << 16); });
+  } else {  // one item per quad of an element: 16 B of 32-bit limbs
     const uint32_t* x = static_cast<const uint32_t*>(src);
     staged_copy<uint4>(
-        nE * 2,
+        nE * kQ,
         [&](int i, uint4& w) {
           size_t bat, g;
-          if (!locate(pp, i >> 1, bat, g)) return false;
-          w = *reinterpret_cast<const uint4*>(x + (bat * n + g) * NL + 4 * (i & 1));
+          if (!locate(pp, i / kQ, bat, g)) return false;
+          w = *reinterpret_cast<const uint4*>(x + (bat * n + g) * N + 4 * (i % kQ));
           return true;
         },
-        [&](int i, const uint4& w) { put4(xs + 4 * (i & 1) * LS + sw(i >> 1), LS, w); });
+        [&](int i, const uint4& w) { put4(xs + 4 * (i % kQ) * LS + sw(i / kQ), LS, w); });
   }
-  {  // the tile's twiddles, one item per half twiddle (index 0 is unused)
+  {  // the tile's twiddles, one item per quad of a twiddle (index 0 is unused)
     const size_t lo = (size_t)blockIdx.x & (((size_t)1 << pp.s0) - 1);
     staged_copy<uint4>(
-        T * 2,
+        T * kQ,
         [&](int i, uint4& w) {
-          const int ti = i >> 1;
+          const int ti = i / kQ;
           if (ti == 0) return false;
           const int t = 31 - __clz(ti);
           const size_t j = ((size_t)(ti - (1 << t)) << pp.s0) | lo;
-          w = __ldg(reinterpret_cast<const uint4*>(tw + ((((size_t)1 << (pp.s0 + t)) - 1 + j) * NL)) + (i & 1));
+          w = __ldg(reinterpret_cast<const uint4*>(tw + ((((size_t)1 << (pp.s0 + t)) - 1 + j) * N)) + i % kQ);
           return true;
         },
-        [&](int i, const uint4& w) { put4(ws + 4 * (i & 1) * LT + sw(i >> 1), LT, w); });
+        [&](int i, const uint4& w) { put4(ws + 4 * (i % kQ) * LT + sw(i / kQ), LT, w); });
   }
   __syncthreads();
 
 #pragma unroll 1
   for (int t = 0; t < pp.S; ++t) {
-    ntt_stage(xs, ws, LS, LT, t, pp.ntid, pp.tpos[t], P);
+    ntt_stage<N>(xs, ws, LS, LT, t, pp.ntid, pp.tpos[t], P);
     __syncthreads();
   }
 
@@ -208,29 +217,51 @@ __global__ void __launch_bounds__(kMaxElems / 2)
   if (out_wide) {
     longlong2* y = static_cast<longlong2*>(dst);
     staged_copy<uint32_t>(
-        nE * NL,
+        nE * N,
         [&](int i, uint32_t& v) {
-          v = xs[(i & 7) * LS + sw(i >> 3)];
+          v = xs[(i % N) * LS + sw(i / N)];
           return true;
         },
         [&](int i, const uint32_t& v) {
           size_t bat, g;
-          if (locate(pp, i >> 3, bat, g)) y[(bat * n + g) * NL + (i & 7)] = make_longlong2(v & 0xFFFFu, v >> 16);
+          if (locate(pp, i / N, bat, g)) y[(bat * n + g) * N + i % N] = make_longlong2(v & 0xFFFFu, v >> 16);
         });
   } else {
     uint32_t* y = static_cast<uint32_t*>(dst);
     staged_copy<uint4>(
-        nE * 2,
+        nE * kQ,
         [&](int i, uint4& w) {
-          const uint32_t* r = xs + 4 * (i & 1) * LS + sw(i >> 1);
+          const uint32_t* r = xs + 4 * (i % kQ) * LS + sw(i / kQ);
           w = make_uint4(r[0], r[LS], r[2 * LS], r[3 * LS]);
           return true;
         },
         [&](int i, const uint4& w) {
           size_t bat, g;
-          if (locate(pp, i >> 1, bat, g)) *reinterpret_cast<uint4*>(y + (bat * n + g) * NL + 4 * (i & 1)) = w;
+          if (locate(pp, i / kQ, bat, g)) *reinterpret_cast<uint4*>(y + (bat * n + g) * N + 4 * (i % kQ)) = w;
         });
   }
+}
+
+template <int N>
+int launch_ntt(const int64_t* x, int64_t* y, uint32_t* scratch, const uint32_t* tw, const NttPass& pp,
+               size_t blocks, const uint32_t* p, const uint32_t* one, uint32_t n0, cudaStream_t stream) {
+  // the largest block: 1024 elements and a 1024-twiddle tile, above the 48 KB default
+  static bool opted = false;
+  if (!opted) {
+    const cudaError_t e = cudaFuncSetAttribute(ntt_pass_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               2 * N * (kMaxElems + 4) * (int)sizeof(uint32_t));
+    if (e != cudaSuccess) return (int)e;
+    opted = true;
+  }
+  const FieldParams<N> P = make_params<N>(p, one, n0, 0);
+  const bool in_wide = pp.s0 == 0;
+  const bool out_wide = pp.s0 + pp.S == pp.logn;
+  const int T = 1 << pp.S;
+  const size_t smem = (size_t)N * ((T << pp.log_slots) + 4 + T + 4) * sizeof(uint32_t);
+  ntt_pass_kernel<N><<<(unsigned)blocks, 1 << pp.ntid, smem, stream>>>(
+      in_wide ? (const void*)x : (const void*)scratch, out_wide ? (void*)y : (void*)scratch, tw, in_wide,
+      out_wide, pp, P);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -244,9 +275,10 @@ extern "C" {
 // ntt_pallas.thread_maps gives them. The first pass (s0 == 0) reads x,
 // (batch, n, 16) int64 16-bit limbs in natural order, bit-reversing it;
 // the last (s1 == logn) writes y, same layout; other ends use scratch,
-// (batch, n, 8) u32, in place. tw: (n-1, 8) u32 twiddles.
+// (batch, n, n32) u32, in place. tw: (n-1, n32) u32 twiddles. n32: 32-bit
+// limbs per element, 8 or 12 (x and y hold 2*n32 int64 words an element).
 int zkt_ntt_pass(const int64_t* x, int64_t* y, uint32_t* scratch, const uint32_t* tw, int batch,
-                 int logn, int s0, int s1, int log_slots, const int* tpos, const uint32_t* p,
+                 int logn, int s0, int s1, int log_slots, const int* tpos, int n32, const uint32_t* p,
                  const uint32_t* one, uint32_t n0, void* stream) {
   NttPass pp;
   pp.logn = logn;
@@ -257,7 +289,7 @@ int zkt_ntt_pass(const int64_t* x, int64_t* y, uint32_t* scratch, const uint32_t
   pp.ntid = pp.S + log_slots - 1;
   const int nbits = pp.S + log_slots;
   if (batch < 1 || s0 < 0 || pp.S < 1 || pp.S > kMaxStages || s1 > logn || logn > 40 || log_slots < 0 ||
-      nbits > 10)
+      nbits > 10 || (n32 != 8 && n32 != 12))
     return (int)cudaErrorInvalidValue;
   for (int t = 0; t < pp.S; ++t) {
     unsigned seen = 1u << t;  // the stage's own bit, then each thread bit once
@@ -272,23 +304,9 @@ int zkt_ntt_pass(const int64_t* x, int64_t* y, uint32_t* scratch, const uint32_t
   const size_t pairs = (size_t)batch << (logn - s1);
   const size_t blocks = ((pairs + ((size_t)1 << log_slots) - 1) >> log_slots) << s0;
   if (blocks >= (1u << 31)) return (int)cudaErrorInvalidValue;
-  // the largest block: 1024 elements and a 1024-twiddle tile, above the 48 KB default
-  static bool opted = false;
-  if (!opted) {
-    const cudaError_t e = cudaFuncSetAttribute(ntt_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               2 * NL * (kMaxElems + 4) * (int)sizeof(uint32_t));
-    if (e != cudaSuccess) return (int)e;
-    opted = true;
-  }
-  const FieldParams8 P = make_params<NL>(p, one, n0, 0);
-  const bool in_wide = s0 == 0;
-  const bool out_wide = s1 == logn;
-  const int T = 1 << pp.S;
-  const size_t smem = (size_t)NL * ((T << log_slots) + 4 + T + 4) * sizeof(uint32_t);
-  ntt_pass_kernel<<<(unsigned)blocks, 1 << pp.ntid, smem, (cudaStream_t)stream>>>(
-      in_wide ? (const void*)x : (const void*)scratch, out_wide ? (void*)y : (void*)scratch, tw, in_wide,
-      out_wide, pp, P);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (n32 == 8) return launch_ntt<8>(x, y, scratch, tw, pp, blocks, p, one, n0, s);
+  return launch_ntt<12>(x, y, scratch, tw, pp, blocks, p, one, n0, s);
 }
 
 }  // extern "C"

@@ -180,7 +180,9 @@ def pairing_product_is_one(curve: str, pairs: Sequence[Tuple[PointG1, PointG2]])
     """prod e(P_i, Q_i) == 1 — the shape of all SNARK verification checks.
     Single shared final exponentiation over the product of Miller loops."""
     if curve == "bw6_761":
-        raise NotImplementedError("the port has no BW6-761 pairing yet")
+        from .pairing_bw6 import pairing_product_is_one_bw6
+
+        return pairing_product_is_one_bw6(pairs)
     ctx, _, _, _ = _pairing_cfg(curve)
     f = Fq12.one(ctx)
     for Pt, Q in pairs:

@@ -90,6 +90,10 @@ def _passes(bits: int) -> int:
     return n
 
 
+# limbs one packed carry resolution takes (FieldOps._resolve): 62 bits of
+# x and G leave their sum, and a carry in, below 2^63
+_RESOLVE_LIMBS = 62
+
 _CHUNK_PRODUCTS = 1 << 25  # caps _diag_sums' (rows, k, 2k) int64 temporary at 512 MiB
 
 
@@ -123,6 +127,26 @@ def _mul_cols(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return cols.reshape(lead + (2 * k - 1,))
 
 
+def _toeplitz(limbs, width: int, device) -> torch.Tensor:
+    """(k, width) float64 matrix M of a constant's k limbs, M[i, c] =
+    limbs[c - i] (0 where c - i is out of range): x @ M gives the first
+    `width` product columns of x and the constant."""
+    k = len(limbs)
+    m = np.zeros((k, width), np.float64)
+    for i in range(k):
+        n = min(k, width - i)
+        if n > 0:
+            m[i, i : i + n] = np.asarray(limbs[:n], np.float64)
+    return torch.as_tensor(m, device=device)
+
+
+def _const_cols(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Product columns of 16-bit limbs x (..., k) and a constant's column
+    matrix m (_toeplitz), int64: float64 is exact here, each column a sum
+    of k <= 48 products below 2^32."""
+    return torch.matmul(x.to(torch.float64), m).to(torch.int64)
+
+
 class FieldOps:
     """Field arithmetic for one modulus over (..., nl) int64 limb tensors."""
 
@@ -151,6 +175,10 @@ class FieldOps:
                 "np": t(s.nprime_limbs),
                 "one": t(int_to_limbs(1, self.nl)),
                 "sh": torch.arange(2 * self.nl + 1, dtype=torch.int64, device=device),
+                # product columns by the constants as matrix products:
+                # (..., nl) x (nl, 2nl-1) for p, (nl, nl) for np's low half
+                "p_cols": _toeplitz(s.p_limbs, 2 * self.nl - 1, device),
+                "np_cols": _toeplitz(s.nprime_limbs, self.nl, device),
             }
             self._dev[device] = c
         return c
@@ -159,14 +187,23 @@ class FieldOps:
     def _resolve(self, gen: torch.Tensor, prop: torch.Tensor, sh: torch.Tensor):
         """Ripple carries: limb i generates a carry (gen) or passes an
         incoming one on (prop). Returns (carry into each limb, carry out)
-        via one binary addition over packed masks: for x = P|G, the carry
-        into bit i of x + G is G_{i-1} | (P_{i-1} & carry_{i-1})."""
+        via binary additions over packed masks: for x = P|G, the carry
+        into bit i of x + G + c_in is G_{i-1} | (P_{i-1} & carry_{i-1}),
+        bit 0 taking c_in. One int64 addition takes _RESOLVE_LIMBS limbs
+        (x + G + 1 < 2^63); wider rows (the 2*nl = 96 product limbs of
+        BW6-761's 48-limb Fq) go in pieces, each piece's carry out the
+        next one's c_in."""
         k = gen.shape[-1]
-        s = sh[:k]
-        G = (gen.to(torch.int64) << s).sum(-1)
-        x = (prop.to(torch.int64) << s).sum(-1) | G
-        c = (x + G) ^ x ^ G
-        return (c[..., None] >> s) & 1, c >> k
+        carry, parts = None, []
+        for j in range(0, k, _RESOLVE_LIMBS):
+            g, pr = gen[..., j:j + _RESOLVE_LIMBS], prop[..., j:j + _RESOLVE_LIMBS]
+            s = sh[: g.shape[-1]]
+            G = (g.to(torch.int64) << s).sum(-1)
+            x = (pr.to(torch.int64) << s).sum(-1) | G
+            c = ((x + G) if carry is None else (x + G + carry)) ^ x ^ G
+            parts.append((c[..., None] >> s) & 1)
+            carry = c >> g.shape[-1]
+        return (parts[0] if len(parts) == 1 else torch.cat(parts, -1)), carry
 
     def _norm(self, t: torch.Tensor, bits: int):
         """Nonnegative columns < 2^bits -> (16-bit limbs, carry out)."""
@@ -211,13 +248,20 @@ class FieldOps:
         return torch.where(self.is_zero(a)[..., None], a, d)
 
     def mul(self, a, b):
-        """Montgomery product a*b*R^-1 mod p (see module docstring)."""
+        """Montgomery product a*b*R^-1 mod p (see module docstring). The
+        two products by constants (the low half of T times -p^-1, m times
+        p) take 16-bit limbs on both sides, so they run as float64 matrix
+        products against the constants' column matrices (_toeplitz): every
+        column is below 48 * 2^32 < 2^53, exact; T's low half is brought to
+        16-bit limbs first (only its value mod B^nl counts)."""
         nl = self.nl
         c = self._c(a.device)
+        bits = 2 * LIMB_BITS + nl.bit_length() + 2
         T = _mul_cols(a, b)                                 # (..., 2nl-1)
-        m, _ = self._norm(_mul_cols(T[..., :nl], c["np"])[..., :nl], 62)
-        U = torch.nn.functional.pad(T + _mul_cols(m, c["p"]), (0, 1))
-        U, top = self._norm(U, 2 * LIMB_BITS + nl.bit_length() + 2)
+        t_lo, _ = self._norm(T[..., :nl].contiguous(), bits)
+        m, _ = self._norm(_const_cols(t_lo, c["np_cols"]), 62)
+        U = torch.nn.functional.pad(T + _const_cols(m, c["p_cols"]), (0, 1))
+        U, top = self._norm(U, bits)
         return self._cond_sub_p(U[..., nl:].contiguous(), top)
 
     def square(self, a):

@@ -200,7 +200,8 @@ def execute_solver(solver: Solver, inputs: List[int], field, solvers: Sequence[S
             "with zokrates-tpu (which inlines sha256round)"
         )
     if name == "SnarkVerifyBls12377":
-        # the witness of the in-circuit BW6 verifier needs embed/ and the
-        # BW6-761 pairing, which this package does not have
-        raise SolverError("SnarkVerifyBls12377 directive solver: not supported by zokrates_tpu_torch")
+        from ..embed.snark_verify import generate_verify_witness
+
+        n = solver.arg
+        return generate_verify_witness(inputs[:n], inputs[n : n + 8], inputs[n + 8 :])
     raise SolverError(f"unknown solver {name}")

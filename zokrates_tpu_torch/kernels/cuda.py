@@ -3,7 +3,8 @@ a plain C interface, loaded with ctypes).
 
 Each source builds into a library of its own, all nvcc processes started
 together, so the build takes as long as the slowest source (msm_sorted.cu,
-with its Fq2 instantiations) rather than their sum; nvcc also spreads each
+with its Fq2 instantiations, or msm_sorted_wide.cu, the same kernels at 24
+limbs) rather than their sum; nvcc also spreads each
 source's optimization over the CPUs (-split-compile). The libraries build at
 first use — never at import — into zokrates_tpu_torch/_build/ (see
 buildtools.py) for sm_90a. Only a machine with the CUDA toolkit builds
@@ -27,21 +28,24 @@ CSRC = os.path.join(PKG_DIR, "csrc")
 # library name -> source; each includes field.cuh
 SOURCES = {
     "zkt_msm": os.path.join(CSRC, "msm_sorted.cu"),
+    "zkt_msm_wide": os.path.join(CSRC, "msm_sorted_wide.cu"),
     "zkt_field": os.path.join(CSRC, "field_elementwise.cu"),
     "zkt_ntt": os.path.join(CSRC, "ntt.cu"),
     "zkt_mulacc": os.path.join(CSRC, "mulacc.cu"),
     "zkt_point": os.path.join(CSRC, "point_elementwise.cu"),
     "zkt_probe": os.path.join(CSRC, "probe.cu"),
 }
-HEADERS = [os.path.join(CSRC, "field.cuh")]
+HEADERS = [os.path.join(CSRC, "field.cuh"), os.path.join(CSRC, "msm_kernels.cuh")]
 ARCH = "arch=compute_90a,code=sm_90a"
-# 32-bit limbs per element the kernels are instantiated for: 8 (BN254's
-# fields, the BLS12 scalar fields) and 12 (the BLS12 base fields; the MSM
-# kernels of msm_sorted.cu, emul and the point kernels of
-# point_elementwise.cu)
-NL32 = (8, 12)
-# the widths of the other kernels (ereduce_wide, NTT, matvec walk, probe)
-NL32_FIELD = (8,)
+# 32-bit limbs per element the MSM kernels are instantiated for: 8 (BN254's
+# and the Pasta base fields) and 12 (the BLS12 base fields) in
+# msm_sorted.cu, 24 (BW6-761's base field, over Fq only: BW6's G2 lies
+# over Fq too) in msm_sorted_wide.cu, entry points zkt_msm_wide_*
+NL32 = (8, 12, 24)
+# the widths of the other kernels: emul, ereduce_wide, the NTT, the matvec
+# walk and the point kernels (8 and 12; the probe at 8): the 254/255-bit
+# scalar fields and the 377-bit ones (BW6-761's r, the BLS12 base fields)
+NL32_FIELD = (8, 12)
 
 _LIB: Optional[SimpleNamespace] = None
 
@@ -91,16 +95,21 @@ def load() -> SimpleNamespace:
             "zkt_msm_suffix": [P, P, P, I, I, I, I, I, L, L, U, I, P],
             "zkt_msm_suffix_fold": [P, P, P, I, I, I, I, I, L, L, U, I, P],
         },
+        "zkt_msm_wide": {
+            "zkt_msm_wide_walk": [P, P, P, P, I, I, I, I, I, I, I, L, L, U, I, P],
+            "zkt_msm_wide_suffix": [P, P, P, I, I, I, I, I, L, L, U, I, P],
+            "zkt_msm_wide_suffix_fold": [P, P, P, I, I, I, I, I, L, L, U, I, P],
+        },
         "zkt_field": {
             "zkt_emul": [P, P, P, LL, LL, LL, LL, LL, I, L, L, U, P],
             "zkt_emul_tile": [],
             "zkt_ereduce_wide": [P, P, LL, I, L, L, L, U, P],
         },
         "zkt_ntt": {
-            "zkt_ntt_pass": [P, P, P, P, I, I, I, I, I, P, L, L, U, P],
+            "zkt_ntt_pass": [P, P, P, P, I, I, I, I, I, P, I, L, L, U, P],
         },
         "zkt_mulacc": {
-            "zkt_mulacc_walk": [P, P, LL, P, P, P, P, P, I, I, I, LL, I, I, L, L, U, P],
+            "zkt_mulacc_walk": [P, P, LL, P, P, P, P, P, I, I, I, LL, I, I, I, L, L, U, P],
         },
         "zkt_point": {
             "zkt_mixed_add_lm": [P, P, P, P, P, P, P, P, I, I, I, L, L, U, P],

@@ -89,12 +89,15 @@ def curve_ops(q: int) -> CurveOps:
 
 
 def curve_ops_g2(curve: str) -> CurveOps:
-    """G2 ops (Jacobian over Fq2) for a pairing curve."""
+    """G2 ops (Jacobian over Fq2) for a pairing curve, or over Fq for
+    bw6_761, whose G2 lies over its base field."""
     from ..ec.curve import g2_group
+    from ..fields.jfield import field_ops
     from ..fields.jfield2 import field_ops2
 
     key = ("g2", curve)
     if key not in _CURVE_OPS:
         grp = g2_group(curve)
-        _CURVE_OPS[key] = CurveOps(field_ops2(grp.q, grp.tower.beta))
+        f = field_ops2(grp.q, grp.tower.beta) if hasattr(grp, "tower") else field_ops(grp.q)
+        _CURVE_OPS[key] = CurveOps(f)
     return _CURVE_OPS[key]

@@ -348,7 +348,7 @@ def walk(q, flags, p: int, mode: str, safe: bool, beta=None):
     if L == 0 or K == 0:
         return out, coll
     with torch.cuda.device(q.device):
-        rc = lib.zkt_msm_walk(
+        rc = (lib.zkt_msm_wide_walk if nl32 == 24 else lib.zkt_msm_walk)(
             q.data_ptr(), flags.data_ptr(), out.data_ptr(), coll.data_ptr(), K, L, walk_split(K, L),
             nl32, int(beta is not None), int(mode == "mixed"), int(safe), pl, one, n0, babs,
             torch.cuda.current_stream(q.device).cuda_stream,
@@ -388,7 +388,7 @@ def suffix(a, b, p: int, beta=None):
     if M == 0:
         return out
     with torch.cuda.device(a.device):
-        rc = lib.zkt_msm_suffix(
+        rc = (lib.zkt_msm_wide_suffix if nl32 == 24 else lib.zkt_msm_suffix)(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), Lb, M, suffix_split(Lb, M), nl32, int(beta is not None),
             pl, one, n0, babs, torch.cuda.current_stream(a.device).cuda_stream,
         )
@@ -461,7 +461,7 @@ def suffix_fold(out6, p: int, W: int, lw: int, L: int, beta=None):
         return out[0], out[1], out[2]
     sums = torch.empty((3 * en, W * lw), dtype=torch.int32, device=out6.device)
     with torch.cuda.device(out6.device):
-        rc = lib.zkt_msm_suffix_fold(
+        rc = (lib.zkt_msm_wide_suffix_fold if nl32 == 24 else lib.zkt_msm_suffix_fold)(
             out6.data_ptr(), sums.data_ptr(), out.data_ptr(), W, lw, L, nl32, int(beta is not None), pl, one,
             n0, babs, torch.cuda.current_stream(out6.device).cuda_stream,
         )

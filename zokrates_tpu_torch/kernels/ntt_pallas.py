@@ -19,7 +19,9 @@ wrapper runs it only for tensors on the CPU.
 Twiddles come from the host, built from ints as the reference's
 _tw_tables builds its own: stage s's powers w^0 .. w^(2^s - 1) of
 w = omega^(n / 2^(s+1)), Montgomery form, stacked at offset 2^s - 1 of one
-(n-1, 8) table of 32-bit limbs, 32 B a twiddle.
+(n-1, nl/2) table of 32-bit limbs, 2nl B a twiddle. The kernel runs at 8
+32-bit limbs (the 254/255-bit scalar fields) and at 12 (BW6-761's 377-bit
+one).
 """
 
 from __future__ import annotations
@@ -31,8 +33,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-# launches of the CUDA kernel, counted by its wrapper (one per pass)
+# launches of the CUDA kernel, counted by its wrapper (one per pass), and
+# by width: ("ntt", 32-bit limbs) -> launches
 LAUNCHES: Counter = Counter()
+WIDTH_LAUNCHES: Counter = Counter()
 
 MAX_STAGES_PER_PASS = 10  # a tile of 1024 elements, 32 KB of shared memory, and its twiddles
 BLOCK_ELEMS = 256         # elements a block holds where a tile is smaller (csrc/ntt.cu: up to 1024)
@@ -60,11 +64,11 @@ def fft_core_plain(dom, x: torch.Tensor, inverse: bool) -> torch.Tensor:
 
 
 def _tw_tables(dom, inverse: bool) -> np.ndarray:
-    """(n-1, 8) uint32 twiddle table, one 32-byte row a twiddle, host-built
-    from the Domain's per-stage Montgomery powers (themselves computed
-    from ints)."""
+    """(n-1, nl/2) uint32 twiddle table, one row of 32-bit limbs a twiddle,
+    host-built from the Domain's per-stage Montgomery powers (themselves
+    computed from ints)."""
     src = dom._tw_inv if inverse else dom._tw
-    limbs16 = np.concatenate(src).astype(np.uint32)  # (n-1, 16): stage s at 2^s - 1
+    limbs16 = np.concatenate(src).astype(np.uint32)  # (n-1, nl): stage s at 2^s - 1
     return np.ascontiguousarray(limbs16[:, 0::2] | (limbs16[:, 1::2] << np.uint32(16)))
 
 
@@ -142,7 +146,7 @@ def fft_core(dom, x: torch.Tensor, inverse: bool) -> torch.Tensor:
     from . import cuda
 
     lib = cuda.load()
-    _, pl, one, n0, _ = cuda.field_params(dom.p, None, cuda.NL32_FIELD)
+    n32, pl, one, n0, _ = cuda.field_params(dom.p, None, cuda.NL32_FIELD)
     batch = x.numel() // (dom.n * nl)
     out = torch.empty_like(x)
     if batch == 0:
@@ -152,13 +156,14 @@ def fft_core(dom, x: torch.Tensor, inverse: bool) -> torch.Tensor:
     tw = dom._on(("tw32", inverse), x.device,
                  lambda: torch.as_tensor(_tw_tables(dom, inverse).view(np.int32), device=x.device))
     plan = pass_plan(dom.k, batch)
-    scratch = torch.empty((batch, dom.n, 8), dtype=torch.int32, device=x.device) if len(plan) > 1 else out
+    scratch = torch.empty((batch, dom.n, n32), dtype=torch.int32, device=x.device) if len(plan) > 1 else out
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         for s0, s1, log_slots in plan:
             rc = lib.zkt_ntt_pass(x.data_ptr(), out.data_ptr(), scratch.data_ptr(), tw.data_ptr(),
                                   batch, dom.k, s0, s1, log_slots, _thread_map_ints(s1 - s0, log_slots),
-                                  pl, one, n0, stream)
+                                  n32, pl, one, n0, stream)
             cuda.check(rc, "ntt")
             LAUNCHES["ntt"] += 1
+            WIDTH_LAUNCHES[("ntt", n32)] += 1
     return out

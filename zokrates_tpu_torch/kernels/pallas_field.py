@@ -40,8 +40,8 @@ from ..fields.jfield2 import field_ops2
 # launches of each CUDA kernel, counted by its wrapper (plain-version runs
 # on CPU tensors are not launches)
 LAUNCHES: Counter = Counter()
-# launches of emul and the point kernels by width: (kernel, 32-bit limbs)
-# -> launches
+# launches of emul, ereduce_wide, mulacc_walk and the point kernels by
+# width: (kernel, 32-bit limbs) -> launches
 WIDTH_LAUNCHES: Counter = Counter()
 # elements a tile of csrc/field_elementwise.cu's emul_kernel (its
 # zkt_emul_tile(); kernels/cuda.load checks that they agree)
@@ -221,7 +221,7 @@ def emul(p: int, a, b):
     _check_aligned("a", a, a_bs)
     _check_aligned("b", b, b_bs)
     lib = cuda.load()
-    n32, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32)
+    n32, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32_FIELD)
     out = torch.empty((B, L, nl), dtype=torch.int64, device=a.device)
     if out.numel() == 0:
         return out
@@ -265,6 +265,7 @@ def ereduce_wide(p: int, t):
                                   torch.cuda.current_stream(t.device).cuda_stream)
     cuda.check(rc, "ereduce_wide")
     LAUNCHES["ereduce_wide"] += 1
+    WIDTH_LAUNCHES[("ereduce_wide", n32)] += 1
     return out
 
 
@@ -345,20 +346,21 @@ def mulacc_walk(p: int, Z_mont, walk):
 
     _check_aligned("Z_mont", Z_mont, 0)
     lib = cuda.load()
-    _, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32_FIELD)
+    n32, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32_FIELD)
     B, m, _ = Z_mont.shape
     out = torch.empty((B, walk.pos.numel(), nl), dtype=torch.int64, device=Z_mont.device)
     if B == 0:
         return out
-    zp = torch.empty((B, m, nl // 2), dtype=torch.int32, device=Z_mont.device)  # z as 32-bit limbs
+    zp = torch.empty((B, m, n32), dtype=torch.int32, device=Z_mont.device)  # z as 32-bit limbs
     with torch.cuda.device(Z_mont.device):
         rc = lib.zkt_mulacc_walk(Z_mont.data_ptr(), zp.data_ptr(), m, walk.cols_walk.data_ptr(),
                                  walk.coeff_packed.data_ptr(),
                                  walk.flags_walk.data_ptr(), walk.lane_base.data_ptr(), out.data_ptr(), B, K, M,
-                                 walk.n_records, walk.n_flush, out.shape[1], pl, one, n0,
+                                 walk.n_records, walk.n_flush, out.shape[1], n32, pl, one, n0,
                                  torch.cuda.current_stream(Z_mont.device).cuda_stream)
     cuda.check(rc, "mulacc_walk")
     LAUNCHES["mulacc_walk"] += 2  # two kernels: z packed, then the walk
+    WIDTH_LAUNCHES[("mulacc_walk", n32)] += 2
     return out
 
 
@@ -425,7 +427,7 @@ def mixed_add_lm(p: int, X, Y, Z, Qx, Qy, block: int = 256):
     from . import cuda
 
     lib = cuda.load()
-    n32, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32)
+    n32, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32_FIELD)
     out = torch.empty((3, nl, N), dtype=torch.int32, device=X.device)
     if N == 0:
         return out[0], out[1], out[2]
@@ -491,7 +493,7 @@ def accumulate_lm(p: int, digits, Qx, Qy, n_buckets: int = 16, block: int = 256)
     from . import cuda
 
     lib = cuda.load()
-    n32, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32)
+    n32, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32_FIELD)
     out = torch.empty((3, n_buckets, nl, R), dtype=torch.int32, device=digits.device)
     if R == 0:
         return out[0], out[1], out[2]

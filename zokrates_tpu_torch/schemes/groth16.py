@@ -71,6 +71,14 @@ def _next_pow2(n: int) -> int:
     return 1 << max(1, (n - 1).bit_length())
 
 
+def _g2_beta(curve: str):
+    """The Fq2 non-residue beta (u^2 = beta) of G2's coordinates, or None
+    where G2 lies over Fq (BW6-761: y^2 = x^3 + 4 over its base field),
+    whose MSMs run the Fq walks over rows packed as G1's (pack_points)."""
+    grp = g2_group(curve)
+    return grp.tower.beta if hasattr(grp, "tower") else None
+
+
 # ---------------------------------------------------------------------------
 # Proving key
 # ---------------------------------------------------------------------------
@@ -90,8 +98,10 @@ class ProvingKey:
     same mask as b1; where those rows exceed 128 words (6*nl > 128: the
     BLS12 curves, 144 words) the key keeps the coordinates instead, as the
     JAX package does (b2_p128 None, b2_xy = (x, y), each (m, 2, nl)), and
-    b2_rows() packs the wide rows. The arrays are numpy, equal to the JAX
-    package's; device copies are made per device on first prove.
+    b2_rows() packs the wide rows. BW6-761's G2 lies over Fq: its b2_xy
+    are (m, nl) each, and b2_rows() packs them as G1 rows (144 words).
+    The arrays are numpy, equal to the JAX package's; device copies are
+    made per device on first prove.
     """
 
     def __init__(
@@ -159,17 +169,19 @@ class ProvingKey:
         return self.b2_p128[:, 2 * nl : 4 * nl].reshape(-1, 2, nl)
 
     def b2_rows(self) -> np.ndarray:
-        """The b2 query as packed rows (m, packed_width(2*nl)) uint32:
-        b2_p128, or the wide rows packed from b2_xy (once; not pickled)."""
+        """The b2 query as packed rows (m, packed_width(2*nl)) uint32, or
+        (m, packed_width(nl)) for a G2 over Fq: b2_p128, or the wide rows
+        packed from b2_xy (once; not pickled)."""
         if self.b2_p128 is not None:
             return self.b2_p128
         rows = self._dev.get("b2_rows")
         if rows is None:
-            from ..kernels.msm_sorted import pack_points_g2
+            from ..kernels.msm_sorted import pack_points, pack_points_g2
 
             x, y = (torch.as_tensor(a.astype(np.int64)) for a in self._b2_xy)
             q = P.BASE_FIELDS[self.curve].p
-            rows = self._dev["b2_rows"] = pack_points_g2(q, x, y).numpy().astype(np.uint32)
+            pack = pack_points_g2 if _g2_beta(self.curve) is not None else pack_points
+            rows = self._dev["b2_rows"] = pack(q, x, y).numpy().astype(np.uint32)
         return rows
 
     def __getstate__(self):
@@ -314,14 +326,24 @@ def _pack_from_device(curve: str, ax, ay, inf):
 
 
 def _lagrange_at_tau(p: int, n: int, omega: int, tau: int) -> List[int]:
-    """L_r(tau) for r in 0..n over the size-n domain: Z(tau) w^r / (n (tau - w^r))."""
-    z_tau = (pow(tau, n, p) - 1) % p
-    n_inv = pow(n, -1, p)
-    out = []
+    """L_r(tau) for r in 0..n over the size-n domain: Z(tau) w^r / (n (tau - w^r)).
+    The n inverses come from one batch inversion (prefix products and one
+    modular inverse) in place of n modular inverses."""
+    c = (pow(tau, n, p) - 1) * pow(n, -1, p) % p
+    ws, d = [], []
     w_r = 1
     for _ in range(n):
-        out.append(z_tau * w_r % p * pow((tau - w_r) % p, -1, p) % p * n_inv % p)
+        ws.append(w_r)
+        d.append((tau - w_r) % p)
         w_r = w_r * omega % p
+    pre = [1] * (n + 1)
+    for i, v in enumerate(d):
+        pre[i + 1] = pre[i] * v % p
+    inv = pow(pre[n], -1, p)  # raises where tau is a root of unity, as each inverse did
+    out = [0] * n
+    for i in range(n - 1, -1, -1):
+        out[i] = c * ws[i] % p * (inv * pre[i] % p) % p
+        inv = inv * d[i] % p
     return out
 
 
@@ -383,15 +405,18 @@ def _hw_fused_tier(m: int, n: int) -> int:
     return -(-N // 4096) * 4096
 
 
-def _h16_p128(curve: str, h_p128: np.ndarray, Nh: int, device) -> np.ndarray:
-    """The shared-bucket h query from the packed h query rows (k points):
-    (Wc * Nh, 128) packed rows, row w*Nh + j holding 2^(16w) * h_j for
-    j < k, and past k the zero row, which is how _fb_g1 packs the point at
-    infinity of a zero scalar (the reference pads with zero scalars).
+def _h16_p128(curve: str, h_p128: np.ndarray, Nh: int, device, chunk: int = 1 << 15) -> np.ndarray:
+    """The shared-bucket h query from the packed h query rows (k points,
+    each `width` words: 128, or 144 for BW6-761's 48-limb Fq): (Wc * Nh,
+    width) packed rows, row w*Nh + j holding 2^(16w) * h_j for j < k, and
+    past k the zero row, which is how _fb_g1 packs the point at infinity of
+    a zero scalar (the reference pads with zero scalars).
 
     The reference computes the rows as _fb_g1 of the shifted scalars. Here
     window w+1 is window w doubled 16 times, in Jacobian coordinates, and
-    all windows are normalized together (one batched inversion):
+    the windows of `chunk` points at a time are normalized together (one
+    batched inversion; the chunks bound the plain ops' temporaries, which
+    over BW6-761's Wc = 24 windows of 2^17 points would need tens of GB):
     2^(16w) * h_j is one affine point, so the rows are the same bits."""
     from ..kernels.fixed_base import batch_normalize
     from ..kernels.jec import curve_ops
@@ -401,22 +426,26 @@ def _h16_p128(curve: str, h_p128: np.ndarray, Nh: int, device) -> np.ndarray:
     Wc = shared_window_count(P.SCALAR_FIELDS[curve].p, 16)
     ops = curve_ops(q)
     f = ops.f
-    k = h_p128.shape[0]
+    k, width = h_p128.shape
     if k > Nh:
         raise ValueError(f"h query of {k} points does not fit a row stride of {Nh}")
-    xy = torch.as_tensor(h_p128[:, : 2 * f.nl].astype(np.int64), device=device)
-    X, Y = xy[:, : f.nl], xy[:, f.nl :]
-    inf = (xy == 0).all(1)  # the zero row: no affine point of the curve
-    pt = (X, Y, f.select(inf, f.zero_like(X), f.one_like(X)))
-    wins = [pt]
-    for _ in range(Wc - 1):
-        for _ in range(16):
-            pt = ops.double(pt)
-        wins.append(pt)
-    ax, ay, _ = batch_normalize(ops, tuple(torch.cat([p[i] for p in wins]) for i in range(3)))
-    out = np.zeros((Wc, Nh, 128), np.uint32)
-    out[:, :k] = pack_points(q, ax, ay).cpu().numpy().astype(np.uint32).reshape(Wc, k, 128)
-    return out.reshape(Wc * Nh, 128)
+    out = np.zeros((Wc, Nh, width), np.uint32)
+    for j0 in range(0, k, chunk):
+        j1 = min(k, j0 + chunk)
+        xy = torch.as_tensor(h_p128[j0:j1, : 2 * f.nl].astype(np.int64), device=device)
+        X, Y = xy[:, : f.nl], xy[:, f.nl :]
+        inf = (xy == 0).all(1)  # the zero row: no affine point of the curve
+        pt = (X, Y, f.select(inf, f.zero_like(X), f.one_like(X)))
+        wins = [pt]
+        for _ in range(Wc - 1):
+            for _ in range(16):
+                pt = ops.double(pt)
+            wins.append(pt)
+        ax, ay, _ = batch_normalize(ops, tuple(torch.cat([p[i] for p in wins]) for i in range(3)))
+        del wins, pt
+        rows = pack_points(q, ax, ay).cpu().numpy().astype(np.uint32)
+        out[:, j0:j1] = rows.reshape(Wc, j1 - j0, width)
+    return out.reshape(Wc * Nh, width)
 
 
 def setup(r1cs: R1CS, rng=None, device="cuda") -> Tuple[ProvingKey, "VerificationKey"]:
@@ -479,9 +508,13 @@ def setup(r1cs: R1CS, rng=None, device="cuda") -> Tuple[ProvingKey, "Verificatio
     l_p128, _ = _fb_g1(curve, dummied(l_full), device)
     # the shared-bucket form of the h query, for the prover on a CUDA
     # device (the reference builds it on a TPU); gated to n - 1 <= 2^17,
-    # since it stores Wc = 16 shifted copies of the query
+    # since it stores Wc = 16 shifted copies of the query, and to base
+    # fields of at most 24 16-bit limbs: over BW6-761's 48 (Wc = 24) its
+    # MSM measured slower than the dense one on an H100 (57.06 against
+    # 53.11 ms on the recursion circuit, port_tools/bw6_phase.py --h16),
+    # for 66 s of setup and a table of 1.8 GB
     h16_p128 = None
-    if torch.device(device).type == "cuda" and n - 1 <= (1 << 17):
+    if torch.device(device).type == "cuda" and n - 1 <= (1 << 17) and n_limbs(P.BASE_FIELDS[curve].p) <= 24:
         h16_p128 = _h16_p128(curve, h_p128, _hw_fused_tier(m, n), device)
     b2x, b2y, _ = _fb_g2(curve, dummied(b_t), device)
     q = P.BASE_FIELDS[curve].p
@@ -646,9 +679,6 @@ def compute_h(r1cs: R1CS, z: Sequence[int], n: int, device="cuda") -> List[int]:
 # Nova and MPC call the same ones)
 # ---------------------------------------------------------------------------
 
-_G2_OVER_FQ = "the port's G2 MSM runs over Fq2: a G2 over the base field (BW6-761) is not ported"
-
-
 def _pad_pairs(pairs):
     """Pad to the next power of two with (first point, scalar 0) — zero
     scalars fall into the dropped bucket, and pow2 sizes share MSM
@@ -700,14 +730,18 @@ def _msm_dev_g2(curve: str, Px: torch.Tensor, Py: torch.Tensor, S: torch.Tensor,
     scalars, through the sorted MSM's Fq2 walks (the rows packed by
     pack_points_g2: 144 words for the BLS12 curves, where the reference
     takes its XLA Pippenger, since its TPU gather layout holds 128). A G2
-    over the base field (BW6-761) raises NotImplementedError."""
-    from ..kernels.msm_sorted import msm_sorted_host, pack_points_g2
+    over the base field (BW6-761: coordinates (N, nl)) runs the Fq walks
+    over rows packed by pack_points, as the reference's _msm_g2 runs G1's
+    formulas (the adds do not read the curve's b)."""
+    from ..kernels.msm_sorted import msm_sorted_host, pack_points, pack_points_g2
 
     grp = g2_group(curve)
-    if not hasattr(grp, "tower"):
-        raise NotImplementedError(_G2_OVER_FQ)
+    beta = _g2_beta(curve)
+    if beta is None:
+        cfg, P128, S = _sorted_inputs(pack_points(grp.q, Px, Py), S, mask)
+        return _jac_to_g2(curve, msm_sorted_host(grp.q, grp.r, P128, S, cfg))
     cfg, P128, S = _sorted_inputs(pack_points_g2(grp.q, Px, Py), S, mask)
-    beta = grp.tower.beta - grp.q  # small negative representative
+    beta = beta - grp.q  # small negative representative
     return _jac_to_g2(curve, msm_sorted_host(grp.q, grp.r, P128, S, cfg, beta=beta))
 
 
@@ -730,21 +764,23 @@ def _msm_g1(curve: str, points: List[Optional[Tuple[int, int]]], scalars: List[i
 
 def _msm_g2(curve: str, points: List[Optional[PointG2]], scalars: List[int],
             device="cuda") -> PointG2:
-    """G2 MSM over host points, as _msm_g1, through _msm_dev_g2. A G2 over
-    the base field (BW6-761) raises NotImplementedError."""
+    """G2 MSM over host points, as _msm_g1, through _msm_dev_g2 (over Fq
+    for BW6-761's G2)."""
     grp = g2_group(curve)
     pairs = [(pt, s % grp.r) for pt, s in zip(points, scalars) if pt is not None and s % grp.r != 0]
     if not pairs:
         return grp.zero()
-    if not hasattr(pairs[0][0].x, "c0"):
-        raise NotImplementedError(_G2_OVER_FQ)
     pairs = _pad_pairs(pairs)
+    S = _scalar_limbs(grp, [s for _, s in pairs], device)
+    if _g2_beta(curve) is None:
+        X = _mont_elems(grp.q, [pt.x for pt, _ in pairs], device)
+        Y = _mont_elems(grp.q, [pt.y for pt, _ in pairs], device)
+        return _msm_dev_g2(curve, X, Y, S)
 
     def coord(get):
         ints = [v for pt, _ in pairs for v in (get(pt).c0, get(pt).c1)]
         return _mont_elems(grp.q, ints, device).reshape(len(pairs), 2, -1)
 
-    S = _scalar_limbs(grp, [s for _, s in pairs], device)
     return _msm_dev_g2(curve, coord(lambda pt: pt.x), coord(lambda pt: pt.y), S)
 
 
@@ -877,12 +913,40 @@ def _combine_host_g1(nf, dev_jac, host_wins, w0: int, c: int):
 
 
 def _combine_host_g2(nf2, dev_jac, host_wins, w0: int, c: int):
+    """As _combine_host_g1 over nf2's G2 ops (Fq2, or Fq: _G2OverFq)."""
     if not host_wins:
         return dev_jac
-    acc = ((1, 0), (1, 0), (0, 0))
-    for S in reversed(host_wins):
+    acc = host_wins[-1]
+    for S in reversed(host_wins[:-1]):
         acc = nf2.g2_add(nf2.g2_shift(acc, c), S)
     return nf2.g2_add(dev_jac, nf2.g2_shift(acc, c * w0))
+
+
+class _G2OverFq:
+    """A native Fq context under the G2 names of the host tail
+    (_finish_native, _host_sparse_windows, _combine_host_g2), for a G2
+    over the base field (BW6-761): its G1 ops, on int coordinates."""
+
+    def __init__(self, nf):
+        self.nf = nf
+
+    def combine_windows2(self, wX, wY, wZ, W: int, c: int):
+        return self.nf.combine_windows(wX, wY, wZ, W, c)
+
+    def g2_add(self, a, b):
+        return self.nf.g1_add(a, b)
+
+    def g2_mul(self, jac, k: int):
+        return self.nf.g1_mul(jac, k)
+
+    def g2_shift(self, jac, k: int):
+        return self.nf.g1_shift(jac, k)
+
+    def g2_to_affine(self, jac):
+        return self.nf.g1_to_affine(jac)
+
+    def sparse_window_g2(self, rows, idx, digits, signs):
+        return self.nf.sparse_window_g1(rows, idx, digits, signs)
 
 
 # ---------------------------------------------------------------------------
@@ -956,7 +1020,7 @@ def _prove_device(curve, dev, pkd, Z_pad, N, n, W, cfg, w0, w1, Ks, h16, mark):
 
     p = P.SCALAR_FIELDS[curve].p
     q = P.BASE_FIELDS[curve].p
-    beta = g2_group(curve).tower.beta
+    beta = _g2_beta(curve)
     f = field_ops(p)
     chunk = min(N, 1 << 15)
     cfgH = _shared_h_cfg(cfg)
@@ -1071,17 +1135,42 @@ def _neg_jac2(q, jac):
 
 
 def _native_pair(curve):
-    """(Fq ctx, Fq2 ctx) native contexts, or (None, None) if unavailable."""
+    """(Fq ctx, G2 ctx) native contexts: the G2 one over Fq2, or the Fq one
+    under G2's names (_G2OverFq) where G2 lies over Fq; (None, None) if
+    unavailable."""
     from ..native import field_for as _nfield
 
     q = P.BASE_FIELDS[curve].p
     nf = _nfield(q)
     if nf is None:
         return None, None
-    nf2 = _nfield(q, g2_group(curve).tower.beta)
+    beta = _g2_beta(curve)
+    if beta is None:
+        return nf, _G2OverFq(nf)
+    nf2 = _nfield(q, beta)
     if nf2 is None:
         return None, None
     return nf, nf2
+
+
+def _g2_jac(pt):
+    """A host G2 point as the native tail's Jacobian triple (Z = 1): pairs
+    over Fq2, ints over Fq."""
+    if hasattr(pt.x, "c0"):
+        return ((pt.x.c0, pt.x.c1), (pt.y.c0, pt.y.c1), (1, 0))
+    return (pt.x, pt.y, 1)
+
+
+def _g2_from_affine(grp, aff):
+    """The native tail's affine G2 result (None: infinity) as a host point
+    of grp (PointG2 over Fq2; over Fq, grp's PointG1-type point)."""
+    if aff is None:
+        return grp.zero()
+    if not hasattr(grp, "tower"):
+        return PointG1(grp, aff[0], aff[1])
+    from ..ec.tower import Fq2
+
+    return PointG2(grp, Fq2(grp.tower, aff[0][0], aff[0][1]), Fq2(grp.tower, aff[1][0], aff[1][1]))
 
 
 def _r1cs_device(r1cs: R1CS, n: int, device) -> R1CSDevice:
@@ -1168,7 +1257,8 @@ def _finish_native(curve, pk, nf, nf2, g1w, wh, w2, corrs, w1, W, cfg, r, s,
     g1 = g1grp.generator()
     g2 = g2grp.generator()
     gj = (g1.x, g1.y, 1)
-    g2j = ((g2.x.c0, g2.x.c1), (g2.y.c0, g2.y.c1), (1, 0))
+    g2j = _g2_jac(g2)
+    neg2 = _neg_jac2 if hasattr(g2grp, "tower") else _neg_jac
 
     def comb1(i):
         dev = nf.combine_windows(g1w[0][i], g1w[1][i], g1w[2][i], w1, cfg.c)
@@ -1183,15 +1273,13 @@ def _finish_native(curve, pk, nf, nf2, g1w, wh, w2, corrs, w1, W, cfg, r, s,
     jb2_dev = nf2.combine_windows2(w2[0][0], w2[1][0], w2[2][0], w1, cfg.c)
     if host_g2 is not None:
         jb2_dev = _combine_host_g2(nf2, jb2_dev, host_g2, hw0, cfg.c)
-    jb2 = nf2.g2_add(jb2_dev, _neg_jac2(q, nf2.g2_mul(g2j, cb)))
+    jb2 = nf2.g2_add(jb2_dev, neg2(q, nf2.g2_mul(g2j, cb)))
 
     al, b1p, dl = pk.alpha_g1, pk.beta_g1, pk.delta_g1
     dj = (dl.x, dl.y, 1)
     A = nf.g1_add(nf.g1_add((al.x, al.y, 1), ja), nf.g1_mul(dj, r))
     B1 = nf.g1_add(nf.g1_add((b1p.x, b1p.y, 1), jb1), nf.g1_mul(dj, s))
-    b2c, d2c = pk.beta_g2, pk.delta_g2
-    b2j = ((b2c.x.c0, b2c.x.c1), (b2c.y.c0, b2c.y.c1), (1, 0))
-    d2j = ((d2c.x.c0, d2c.x.c1), (d2c.y.c0, d2c.y.c1), (1, 0))
+    b2j, d2j = _g2_jac(pk.beta_g2), _g2_jac(pk.delta_g2)
     B2 = nf2.g2_add(nf2.g2_add(b2j, jb2), nf2.g2_mul(d2j, s))
     rs = r * s % p
     C = nf.g1_add(
@@ -1200,20 +1288,9 @@ def _finish_native(curve, pk, nf, nf2, g1w, wh, w2, corrs, w1, W, cfg, r, s,
     )
     aA = nf.g1_to_affine(A)
     aC = nf.g1_to_affine(C)
-    aB2 = nf2.g2_to_affine(B2)
     A_pt = g1grp.zero() if aA is None else PointG1(g1grp, aA[0], aA[1])
     C_pt = g1grp.zero() if aC is None else PointG1(g1grp, aC[0], aC[1])
-    if aB2 is None:
-        B2_pt = g2grp.zero()
-    else:
-        from ..ec.tower import Fq2
-
-        B2_pt = PointG2(
-            g2grp,
-            Fq2(g2grp.tower, aB2[0][0], aB2[0][1]),
-            Fq2(g2grp.tower, aB2[1][0], aB2[1][1]),
-        )
-    return A_pt, B2_pt, C_pt
+    return A_pt, _g2_from_affine(g2grp, nf2.g2_to_affine(B2)), C_pt
 
 
 _COMB_CACHE: Dict = {}
@@ -1230,7 +1307,10 @@ def _fb_mul_g1(pt: PointG1, k: int) -> PointG1:
     key = ("g1", q, pt.x, pt.y)
     tbl = _COMB_CACHE.get(key)
     if tbl is None:
-        tbl = _COMB_CACHE[key] = comb_table_g1(q, (pt.x, pt.y))
+        # 4-bit windows over the scalar field's width (95 for BW6-761's
+        # 377-bit r; the reference's table stops at 64, 256-bit scalars)
+        windows = -(-pt.curve.r.bit_length() // 4)
+        tbl = _COMB_CACHE[key] = comb_table_g1(q, (pt.x, pt.y), windows=windows)
     aff = jac_to_affine(q, comb_mul_g1(q, tbl, k))
     if aff is None:
         return PointG1(pt.curve, None, None)
@@ -1271,10 +1351,16 @@ def _jac_to_g1(curve: str, jac) -> PointG1:
 
 
 def _jac_to_g2(curve: str, jac) -> PointG2:
+    """Jacobian G2 sums (pairs over Fq2, ints over Fq) -> a host point."""
     from ..ec.tower import Fq2
 
     grp = g2_group(curve)
     jx, jy, jz = jac
+    if not hasattr(grp, "tower"):  # G2 over Fq (BW6-761)
+        if jz == 0:
+            return grp.zero()
+        zi = pow(jz, -1, grp.q)
+        return PointG1(grp, jx * zi * zi % grp.q, jy * zi * zi % grp.q * zi % grp.q)
     if jz == (0, 0):
         return grp.zero()
     zi = Fq2(grp.tower, jz[0], jz[1]).inv()
@@ -1292,7 +1378,8 @@ def _finish_python(curve, pk, g1w, wh, w2, corrs, w1, W, cfg, r, s):
 
     p = P.SCALAR_FIELDS[curve].p
     q = P.BASE_FIELDS[curve].p
-    beta = g2_group(curve).tower.beta - q
+    beta = _g2_beta(curve)
+    beta = None if beta is None else beta - q
     ca, cb, cl = corrs
     g1 = g1_group(curve).generator()
     g2 = g2_group(curve).generator()
