@@ -48,9 +48,19 @@ Phases, each timed:
      also at every S through the kernel's C entry point, bit-equal to the
      wrapper's output; the suffix at every k, each bit-equal to the plain
      version at that k)
-  5. batched path, as bench.py measures: 16 distinct sha256 witnesses made
-     by the port's interpreter (preimage [16b, ..., 16b + 15]), one
-     warm-up prove_batch and 2 timed ones; all 16 proofs of the last
+  5. witness generator (interp/vectorized.py, VectorizedInterpreter on
+     the card): 16 distinct sha256 witnesses (preimage [16b, ..., 16b +
+     15]), each held value for value against the scalar interpreter (both
+     timed: the plan's build, the first call, eager and captured into one
+     CUDA graph a segment, and the replayed calls), emul and ereduce_wide
+     launches a witness (the replays' counted), no plain field product or
+     reduction on the card (WitnessGuard); emul and ereduce_wide at the
+     plan's widest calls against their plain versions; Pedersen-512 (the
+     deep case, two witnesses) and port_artifacts/solvers_bn128.out.gz
+     (ConditionEq, Or, EuclideanDiv, Bits) the same, the latter's failing
+     inputs (an assert, a division by zero) raising the scalar
+     interpreter's errors; then the batched path, as bench.py measures:
+     those 16 witnesses, one warm-up prove_batch and 2 timed ones; all 16 proofs of the last
      batch verify in one pairing product with random weights (verify_all;
      the same batch with one proof's C swapped must fail), all 16 are
      distinct, proofs 0 and 1 equal prove() of the same witness with the
@@ -61,7 +71,7 @@ Phases, each timed:
      steps by CUDA events) and the peak allocation of one B = 16 h stage
   6. BLS12-381 path: the same sha256 program compiled for bls12_381
      (port_artifacts/sha256_bls12_381.out.gz, read with gzip) and 16
-     witnesses from the port's interpreter (preimage [16b, ..., 16b + 15];
+     witnesses from the card's generator, as in phase 5 (preimage [16b, ..., 16b + 15];
      witness 0 proves on the main path); every kernel of its prove against
      its plain version at the prove's shapes, as in phase 3: the walks,
      suffix and epilogue at 12 limbs over Fq and Fq2 (dense h, a/b1/l and
@@ -97,8 +107,10 @@ Phases, each timed:
      suffix, epilogue, NTT and emul kernels are above 0, and no plain
      version runs on the card in the h stage or the MSMs; then every
      kernel the GM17 prove launches against its plain version at that
-     prove's shapes, as in phase 3: the walks (mixed-unsafe, mixed-safe,
-     general), suffix and epilogue over all 32 windows of the c = 8 MSM
+     prove's shapes, as in phase 3: the walks (mixed-unsafe and general;
+     the mixed-safe walk, which msm_sorted_host runs only again after a
+     collision, is held at the Groth16 paths' shapes), suffix and
+     epilogue over all 32 windows of the c = 8 MSM
      at the queries' 2^16 rows, over Fq and Fq2; the NTT at (2, 2^16)
      and (1, 2^16) both ways; emul at the h stage's shapes and at the
      queries' conversion to Montgomery form
@@ -143,7 +155,8 @@ Phases, each timed:
      recorded against the wrappers'); then every walk, suffix and epilogue
      launch of the eighth step's two MSMs (com_w, com_t) against its plain
      version on its own inputs, the same kernels at those shapes on random
-     tables with coordinates near q over Pallas and Vesta Fq, emul at Pasta
+     tables with coordinates near q over Pallas and Vesta Fq (no
+     mixed-safe walk, as in phase 8), emul at Pasta
      q, a full sorted MSM against the oracle on both curves' G1; and
      compress / verify_compressed on the square step (z' = z*z + z) on
      Pallas and Vesta, two tamperings rejected
@@ -174,8 +187,12 @@ Phases, each timed:
   13. BW6-761 recursion (run_bw6_path): Groth16 over BW6-761 on the
      stdlib's in-circuit BLS12-377 GM17 verifier
      (port_artifacts/snark_gm17_bw6_761.out.gz: 123,507 constraints,
-     domain 2^17; its read and 4 witnesses by the port's interpreter in a
-     child process started with the script, beside the earlier phases):
+     domain 2^17; its read, 4 witnesses by the port's interpreter and the
+     generator's plan in a child process started with the script, beside
+     the earlier phases): the 4 witnesses again by the card's generator on
+     that plan (the host segment's SnarkVerifyBls12377 solver, then the
+     check batch of 4.7M terms at 12 limbs), value for value, and one
+     with a host-solved variable changed raising UnsatisfiedConstraint;
      setup, 3 proofs of the reference's test vector (output 1) with their
      stage split, each verified by the BW6-761 pairing, a proof with C
      swapped and one with its output flipped rejected; prove_batch of 4
@@ -186,14 +203,15 @@ Phases, each timed:
      kernels at 24 limbs only, emul, ereduce_wide, the NTT and mulacc_walk
      at 12 only, no plain version on the card; then every distinct walk,
      suffix and epilogue call of one proof against its plain version (the
-     walks on their first 512 lanes), emul, ereduce_wide and the NTT at
+     walks on their first 256 lanes), emul, ereduce_wide and the NTT at
      the prove's and the batch's shapes, mulacc_walk at B = 1 and 4
   14. the kernels JSON line (each check record with its width in 32-bit
      limbs and its curve; launches on every path: "launches" the main
      path's, for the point kernels the ceremony's; the Marlin path's also
      per proof, the Nova path's also per step; "launches_bw6_761" and
-     "launches_bw6_761_batch" the recursion's), the nvidia-smi line, and
-     the result line.
+     "launches_bw6_761_batch" the recursion's; "launches_witness*" the
+     witness generator's on each program), the witness generator's JSON
+     line, the nvidia-smi line, and the result line.
 
 Exits non-zero on any failure; with no CUDA device it raises before
 printing a result.
@@ -505,14 +523,17 @@ def _record(name, field, mode, shape, got, want, ms_k, ms_p, mults, nbytes, widt
     return rec
 
 
-def check_kernels(shapes, dev, tag: str = "", seed: int = SEED, curve: str = "bn128", near: bool = False):
+def check_kernels(shapes, dev, tag: str = "", seed: int = SEED, curve: str = "bn128", near: bool = False,
+                  safe_mixed: bool = True):
     """Every kernel variant vs its plain version on `dev`, bit for bit, at
     a path's shapes (main_path_shapes, gm17_shapes or nova_shapes) over the
     curve's Fq and Fq2 (8 32-bit limbs on BN254 and the Pasta curves, 12 on
     the BLS12 curves; Fq alone where shapes has no "fq2"), `tag` appended
     to the walk and suffix labels, `near`: the G1 pool's coordinates near q
-    (Points). Returns the per-kernel check records for the kernels JSON
-    line."""
+    (Points). safe_mixed=False leaves out the mixed-safe walk at the dense
+    MSM's shape: msm_sorted_host (GM17's and Nova's MSMs) runs it only
+    again after a collision, and it is held at the Groth16 paths' shapes.
+    Returns the per-kernel check records for the kernels JSON line."""
     import torch
     from zokrates_tpu_torch.kernels import msm_sorted as ms
 
@@ -526,7 +547,7 @@ def check_kernels(shapes, dev, tag: str = "", seed: int = SEED, curve: str = "bn
         fm = FQ2_MULS if ext else 1
         sh = shapes["fq2" if ext else "fq"]
         variants = [(mode, safe, tag, sh) for mode, safe in
-                    (("mixed", False), ("mixed", True), ("general", True))]
+                    (("mixed", False), ("mixed", True), ("general", True)) if safe_mixed or mode != "mixed" or not safe]
         extra = sh.get("extra", {})  # the h16 and a/b1/l MSMs' walks (safe, as the prove)
         for vtag, shp in extra.items():
             variants += [("mixed", True, vtag, shp), ("general", True, vtag, shp)]
@@ -1069,26 +1090,205 @@ def load_sha256_bls12_381():
     return prog, r1cs_from_prog(prog)
 
 
-def batch_witnesses(prog, count: int = BATCH):
-    """`count` distinct sha256 witnesses as bench.py makes them: preimage
+def sha256_inputs(prog, count: int = BATCH):
+    """`count` distinct flat sha256 inputs as bench.py makes them: preimage
     [16b, ..., 16b + 15] through the ABI (bench_artifacts/sha256.abi.json)
-    and the port's interpreter over the program's curve, each written in
-    the binary witness format and read back."""
+    over the program's curve."""
     from zokrates_tpu_torch.abi import encode_inputs
     from zokrates_tpu_torch.fields.field import FIELDS
-    from zokrates_tpu_torch.interp.interpreter import Interpreter
-    from zokrates_tpu_torch.ir.witness import Witness
 
     with open(os.path.join(ROOT, "bench_artifacts", "sha256.abi.json")) as f:
         abi = json.load(f)
+    P = FIELDS[prog.curve].P
+    return [encode_inputs([[[b * 16 + j for j in range(16)]]], abi["inputs"], P) for b in range(count)]
+
+
+def round_trip(prog, wits):
+    """Each witness written in the binary witness format and read back."""
+    from zokrates_tpu_torch.fields.field import FIELDS
+    from zokrates_tpu_torch.ir.witness import Witness
+
     field = FIELDS[prog.curve]
     out = []
-    for b in range(count):
-        flat = encode_inputs([[[b * 16 + j for j in range(16)]]], abi["inputs"], field.P)
+    for w in wits:
         buf = io.BytesIO()
-        Interpreter().execute(prog, flat).write(buf, field)
+        w.write(buf, field)
         out.append(Witness.read(io.BytesIO(buf.getvalue()), field))
     return out
+
+
+def field_launches():
+    from zokrates_tpu_torch.kernels import pallas_field
+
+    return {k: pallas_field.LAUNCHES.get(k, 0) for k in ("emul", "ereduce_wide")}
+
+
+def card_witnesses(prog, flats, label: str, vi=None, calls=None):
+    """Witnesses of `prog` for the flat inputs `flats` by the levelized
+    generator on the card (VectorizedInterpreter(device="cuda").execute,
+    interp/vectorized.py) under a WitnessGuard: the plan's build, the first
+    call (each segment run eagerly, then captured into a CUDA graph) and
+    the later calls (replays) timed, emul and ereduce_wide launches counted
+    per witness (the replays' included) and the graph replays. `vi` may
+    hold an adopted plan. Returns (witnesses, stats)."""
+    import torch
+    from zokrates_tpu_torch.interp import vectorized
+
+    vi = vi or vectorized.VectorizedInterpreter(device="cuda")
+    t0 = time.perf_counter()
+    plan = vi.plan(prog)
+    st = {"plan_s": time.perf_counter() - t0, "segments": len(plan.segments),
+          "levels": sum(map(len, plan.segments)), "groups": sum(len(lv.groups) for seg in plan.segments for lv in seg),
+          "host_groups": sum(h is not None for h in plan.host_groups),
+          "checks": 0 if plan.checks is None else plan.checks.quads.k, "ms": [], "launches": [], "replays": [],
+          "shapes": None if plan.checks is None else witness_shapes(plan, f" {prog.curve}")}
+    wits = []
+    with WitnessGuard() as guard:
+        for flat in flats:
+            before, replays = field_launches(), sum(vectorized.REPLAYS.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wits.append(vi.execute(prog, flat))
+            torch.cuda.synchronize()
+            st["ms"].append((time.perf_counter() - t0) * 1e3)
+            st["launches"].append({k: v - before[k] for k, v in field_launches().items()})
+            st["replays"].append(sum(vectorized.REPLAYS.values()) - replays)
+    if guard.calls:
+        raise AssertionError(f"{label}: plain field products or reductions ran on the card in the witness "
+                             f"generator: {guard.calls}")
+    for key in ("emul", "ereduce_wide"):
+        if any(n[key] <= 0 for n in st["launches"]):
+            raise AssertionError(f"{label}: {key} did not launch on every witness: {st['launches']}")
+    steady = st["ms"][1:]
+    st["first_ms"] = st["ms"][0]
+    st["steady_ms"] = sum(steady) / len(steady) if steady else None
+    log(f"  {label}: plan {st['plan_s']:.2f} s ({st['segments']} segments, {st['levels']} levels, {st['groups']} "
+        f"groups, {st['host_groups']} host groups, {st['checks']} checks); {len(flats)} witnesses on the card: "
+        f"first {st['first_ms']:.1f} ms (eager + capture), then "
+        + (f"{st['steady_ms']:.1f} ms a witness (replays; {min(steady):.1f}-{max(steady):.1f})" if steady else "-")
+        + f"; launches a witness: first {st['launches'][0]}, then {st['launches'][-1]}, graph replays "
+        f"{st['replays'][-1]}; total {sum(st['ms']) / 1e3:.2f} s")
+    return wits, st
+
+
+def hold_to_scalar(prog, flats, wits, label: str, st, want=None):
+    """Each witness value for value against the scalar interpreter's (or
+    against `want`, witnesses the scalar interpreter made elsewhere); the
+    scalar interpreter timed here over all of `flats`."""
+    from zokrates_tpu_torch.interp.interpreter import Interpreter
+
+    if want is None:
+        t0 = time.perf_counter()
+        want = [Interpreter().execute(prog, flat) for flat in flats]
+        st["scalar_s"] = time.perf_counter() - t0
+        log(f"  {label}: the scalar interpreter: {st['scalar_s']:.2f} s for {len(flats)} "
+            f"({st['scalar_s'] / len(flats) * 1e3:.1f} ms a witness) against the card's {sum(st['ms']) / 1e3:.2f} s")
+    bad = [i for i, (g, w) in enumerate(zip(wits, want)) if g.values != w.values]
+    log(f"  {label}: {len(wits)} witnesses equal the scalar interpreter's value for value: {not bad}")
+    if bad:
+        raise AssertionError(f"{label}: witnesses {bad} differ from the scalar interpreter's")
+
+
+def batch_witnesses(prog, count: int = BATCH, stats=None):
+    """`count` distinct sha256 witnesses as bench.py makes them (preimage
+    [16b, ..., 16b + 15], sha256_inputs) by the levelized generator on the
+    card (card_witnesses), all held value for value against the scalar
+    interpreter, each written in the binary witness format and read back.
+    `stats`, a dict, receives the generator's times and counts."""
+    flats = sha256_inputs(prog, count)
+    label = f"sha256 {prog.curve} witnesses"
+    wits, st = card_witnesses(prog, flats, label)
+    hold_to_scalar(prog, flats, wits, label, st)
+    if stats is not None:
+        stats.update(st)
+    return round_trip(prog, wits)
+
+
+SOLVERS_ARTIFACT = "solvers_bn128.out.gz"
+# main(field a, bool b, u32 x, u32 y) -> u32[4]: [x / y, x % y, x | y, b || a == 42], after assert(a != 7)
+SOLVERS_INPUTS = [[5, 0, 1000003, 97], [42, 1, 0xFFFFFFFF, 1], [0, 0, 12, 5]]
+SOLVERS_FAILING = [[7, 0, 1, 1], [0, 0, 12, 0]]  # the failed assert; u32 division by zero
+
+
+def load_gz_prog(name: str):
+    import gzip
+
+    from zokrates_tpu_torch.ir.serialize import deserialize
+
+    with gzip.open(os.path.join(ROOT, "port_artifacts", name), "rb") as f:
+        return deserialize(f.read())
+
+
+def run_witness_path(result):
+    """The levelized witness generator on the programs the batch paths do
+    not reach, under a WitnessGuard: Pedersen-512 (the deep case: 855
+    levels of Div groups, each a Fermat chain of emul products), two
+    witnesses (the first call eager + capture, the second a replay), and
+    the solver program (port_artifacts/SOLVERS_ARTIFACT: ConditionEq, Or,
+    EuclideanDiv (u32 / and %), Bits) at SOLVERS_INPUTS, each value for
+    value against the scalar interpreter; its SOLVERS_FAILING inputs must
+    raise the scalar interpreter's UnsatisfiedConstraint, eagerly and on
+    replay. The launch counts are set to 0 just before each program and
+    read after; `result` receives the stats."""
+    from zokrates_tpu_torch.interp import vectorized
+    from zokrates_tpu_torch.interp.interpreter import Interpreter, UnsatisfiedConstraint
+
+    prog = load_gz_prog("pedersen512_bn128.out.gz")
+    flats = [list(range(16)), [0xFFFFFFFF - i for i in range(16)]]
+    label = "Pedersen-512 witnesses"
+    clear_launches()
+    wits, st = card_witnesses(prog, flats, label)
+    st["kernel_launches"] = launch_counts()
+    hold_to_scalar(prog, flats, wits, label, st)
+    result["pedersen512"] = st
+
+    prog = load_gz_prog(SOLVERS_ARTIFACT)
+    label = "solver program witnesses"
+    clear_launches()
+    vi = vectorized.VectorizedInterpreter(device="cuda")
+    wits, st = card_witnesses(prog, SOLVERS_INPUTS, label, vi)
+    hold_to_scalar(prog, SOLVERS_INPUTS, wits, label, st)
+    solvers = sorted({(g.solver.name if g.solver else "assign") for seg in vi.plan(prog).segments
+                      for lv in seg for g in lv.groups})
+    log(f"  {label}: device groups by solver {solvers}; outputs {[w.return_values() for w in wits]}")
+    errors = []
+    with WitnessGuard() as guard:
+        for flat in SOLVERS_FAILING:
+            try:
+                Interpreter().execute(prog, flat)
+                raise AssertionError(f"the scalar interpreter accepted {flat}")
+            except UnsatisfiedConstraint as e:
+                want = str(e)
+            for _ in range(2):
+                try:
+                    vi.execute(prog, flat)
+                    raise AssertionError(f"the card's generator accepted {flat}")
+                except UnsatisfiedConstraint as e:
+                    if str(e) != want:
+                        raise AssertionError(f"{flat}: the card raised {e!s}, the scalar interpreter {want}")
+            errors.append(want)
+    if guard.calls:
+        raise AssertionError(f"plain field products or reductions ran on the card: {guard.calls}")
+    st["kernel_launches"] = launch_counts()
+    st["errors"] = errors
+    log(f"  {label}: {SOLVERS_FAILING} raise the scalar interpreter's errors on the card, eagerly and on "
+        f"replay: {errors}")
+    result["solvers"] = st
+
+
+def witness_shapes(plan, tag: str):
+    """emul and ereduce_wide at the generator's widest calls on `plan`, as
+    check_field_kernels takes them: the check batch's coefficient products
+    (its three sides' terms, coefficients a packed row each), its row sums
+    (3k sums), the quads' products (k, b packed) and W's conversion from
+    Montgomery form (one row)."""
+    cb = plan.checks
+    terms = len(cb.quads.l_rows) + len(cb.quads.r_rows) + len(cb.lin_rows)
+    k = cb.quads.k
+    return {"emul": [(f"witness check terms{tag}", "Fr", 1, terms, "full"),
+                     (f"witness check quads{tag}", "Fr", 1, k, "full"),
+                     (f"witness from_mont W{tag}", "Fr", 1, plan.num_dense, "row")],
+            "ereduce_wide": [(f"witness check sums{tag}", 1, 3 * k)]}
 
 
 def walk_shapes(Wn: int, Ks: int, cfg):
@@ -1270,6 +1470,20 @@ class PlainGuard:
     def __exit__(self, *exc):
         for owner, name, fn in self.saved:
             setattr(owner, name, fn)
+
+
+class WitnessGuard(PlainGuard):
+    """PlainGuard over the levelized witness generator: counts jfield's mul
+    and reduce_wide on CUDA tensors inside
+    VectorizedInterpreter._execute_plan (the plan's device setup, the
+    segments, host groups and the check batch), where every product must
+    take emul and every reduction ereduce_wide."""
+
+    def __init__(self):
+        super().__init__()
+        from zokrates_tpu_torch.interp import vectorized
+
+        self.patches.append((vectorized.VectorizedInterpreter, "_execute_plan", self._stage))
 
 
 def launch_counts():
@@ -1921,7 +2135,7 @@ def profile_batch(r1cs, pk, wits, dev, rs):
     return res
 
 
-def run_bls12_381_path(dev, smi, records):
+def run_bls12_381_path(dev, smi, records, witness_result):
     """Groth16 on BLS12-381 on the card: the sha256 circuit of
     port_artifacts/ and witnesses from the port's interpreter (witness 0,
     preimage [0, ..., 15], proves on the main path); every kernel of its
@@ -1940,7 +2154,10 @@ def run_bls12_381_path(dev, smi, records):
     t0 = time.perf_counter()
     prog, r1cs = load_sha256_bls12_381()
     t_load = time.perf_counter() - t0
-    wits = batch_witnesses(prog)
+    witness_result[curve] = {}
+    clear_launches()
+    wits = batch_witnesses(prog, stats=witness_result[curve])
+    witness_result[curve]["kernel_launches"] = launch_counts()
     shapes, info = main_path_shapes(r1cs, wits[0])
     # the h16 MSM's walks and suffix are held on a proof's own plan and
     # table below (its mixed walk on two blocks of the plan: its plain
@@ -1950,8 +2167,8 @@ def run_bls12_381_path(dev, smi, records):
     walks = path_walks(rdev)
     shapes["fr"]["ereduce_wide"] += walk_reduce_shapes(walks)
     log(f"  {r1cs.curve}: {r1cs.num_constraints} constraints, {r1cs.num_variables} variables (read in "
-        f"{t_load:.1f} s); {len(wits)} witnesses by the port's interpreter ({time.perf_counter() - t0 - t_load:.1f} "
-        f"s); MSM {info}; {walk_summary(walks)}")
+        f"{t_load:.1f} s); {len(wits)} witnesses by the card's generator ({time.perf_counter() - t0 - t_load:.1f} "
+        f"s, the scalar check included); MSM {info}; {walk_summary(walks)}")
 
     log("== BLS12-381 kernel checks (kernel vs plain version at the prove's shapes, bit-equal)")
     t0 = time.perf_counter()
@@ -2958,7 +3175,8 @@ def run_nova_path(dev, smi, records, pending_setup):
     del clock
     for i, curve in enumerate(("pallas", "vesta")):
         for tag, sh in shapes.items():
-            for name, recs in check_kernels(sh, dev, f" nova {tag} {curve}", SEED + 60 + i, curve, near=True).items():
+            for name, recs in check_kernels(sh, dev, f" nova {tag} {curve}", SEED + 60 + i, curve, near=True,
+                                           safe_mixed=False).items():
                 records[name] += recs
         fr = {"emul": [(f"nova bases to Montgomery form, {curve}", "Fq", 1, n_t, "row")], "ereduce_wide": []}
         for name, recs in check_field_kernels(fr, dev, SEED + 62 + i, curve, near=0.25).items():
@@ -3495,7 +3713,7 @@ def bw6_witnesses(prog, count: int = BW6_BATCH):
     proof of inputs [1, 2, 3], output 1), witness b > 0 the same with inner
     input b - 1 raised by 1 (the inner proof fails: output 0, a witness as
     valid as the first), each written in the binary witness format and
-    read back."""
+    read back. Returns (witnesses, their flat inputs)."""
     import copy
 
     from zokrates_tpu_torch.abi import encode_inputs
@@ -3508,29 +3726,91 @@ def bw6_witnesses(prog, count: int = BW6_BATCH):
     with open(os.path.join(ROOT, "port_artifacts", BW6_ARTIFACT.replace(".out.gz", ".abi.json"))) as f:
         abi = json.load(f)
     field = FIELDS[prog.curve]
-    out = []
+    out, flats = [], []
     for b in range(count):
         vals = copy.deepcopy(values)
         if b:
             inner = vals[0]["inputs"]
             inner[b - 1] = "0x%064x" % (int(inner[b - 1], 16) + 1)
+        flats.append(encode_inputs(vals, abi["inputs"], field.P))
         buf = io.BytesIO()
-        Interpreter().execute(prog, encode_inputs(vals, abi["inputs"], field.P)).write(buf, field)
+        Interpreter().execute(prog, flats[-1]).write(buf, field)
         out.append(Witness.read(io.BytesIO(buf.getvalue()), field))
-    return out
+    return out, flats
 
 
 def bw6_host_job():
     """The recursion circuit's host work, run in a child process beside the
-    earlier phases: the artifact read (deserialize, r1cs_from_prog) and
-    BW6_BATCH witnesses by the interpreter. Returns (r1cs, witnesses,
-    {stage: seconds})."""
+    earlier phases: the artifact read (deserialize, r1cs_from_prog),
+    BW6_BATCH witnesses by the scalar interpreter and the levelized
+    generator's plan (interp/vectorized.build_plan). Returns (r1cs,
+    witnesses, {stage: seconds}, (head, plan, flat inputs)): head is the
+    program without its statements (curve, arguments, solvers), for
+    VectorizedInterpreter.adopt with the plan, so that the main process
+    never reads the artifact nor receives its 4.7M terms twice."""
     sys.path.insert(0, ROOT)
+    from zokrates_tpu_torch.interp.vectorized import build_plan
+    from zokrates_tpu_torch.ir.program import Prog
+
     t0 = time.perf_counter()
     prog, r1cs = load_bw6_recursion()
     t1 = time.perf_counter()
-    wits = bw6_witnesses(prog)
-    return r1cs, wits, {"read": t1 - t0, "witnesses": time.perf_counter() - t1}
+    wits, flats = bw6_witnesses(prog)
+    t2 = time.perf_counter()
+    plan = build_plan(prog)
+    head = Prog(prog.curve, prog.arguments, prog.return_count, [], prog.solvers)
+    return r1cs, wits, {"read": t1 - t0, "witnesses": t2 - t1, "plan": time.perf_counter() - t2}, (head, plan, flats)
+
+
+def bw6_card_witnesses(wits, vec, records):
+    """The recursion circuit's witnesses by the levelized generator on the
+    card, on the plan bw6_host_job built (adopted): segment 0, the host
+    segment (the SnarkVerifyBls12377 solver writes 123k variables) and the
+    check batch of 4.7M terms at 12 limbs; each held value for value
+    against the scalar interpreter's (outputs 1, 0, 0, 0: an inner input
+    changed still satisfies the circuit); then the honest inputs with one
+    variable the host solver wrote changed must raise
+    UnsatisfiedConstraint. emul and ereduce_wide at the check batch's
+    shapes against their plain versions, into `records`. Returns the
+    stats."""
+    from zokrates_tpu_torch.interp import vectorized
+    from zokrates_tpu_torch.interp.interpreter import UnsatisfiedConstraint
+
+    head, plan, flats = vec
+    vi = vectorized.VectorizedInterpreter(device="cuda")
+    vi.adopt(head, plan)
+    label = "BW6-761 recursion witnesses"
+    clear_launches()
+    got, st = card_witnesses(head, flats, label, vi)
+    st["kernel_launches"] = launch_counts()
+    hold_to_scalar(head, flats, got, label, st, want=wits)
+    outs = [w.return_values() for w in got]
+    log(f"  {label}: outputs {outs}")
+    if outs != [[1]] + [[0]] * (len(got) - 1):
+        raise AssertionError(f"{label}: outputs {outs}, expected 1, 0, 0, 0")
+    solve = vectorized.execute_solver
+
+    def tampered(solver, ins, field, solvers=()):
+        res = list(solve(solver, ins, field, solvers))
+        res[len(res) // 2] = (res[len(res) // 2] + 1) % field.P
+        return res
+
+    vectorized.execute_solver = tampered
+    try:
+        with WitnessGuard() as guard:
+            vi.execute(head, flats[0])
+        raise AssertionError(f"{label}: a witness with a host-solved variable changed passed the checks")
+    except UnsatisfiedConstraint as e:
+        st["tampered"] = str(e)
+        log(f"  {label}: one host-solved variable changed: UnsatisfiedConstraint ({e})")
+    finally:
+        vectorized.execute_solver = solve
+    if guard.calls:
+        raise AssertionError(f"plain field products or reductions ran on the card: {guard.calls}")
+    log("== BW6-761 witness generator kernels: emul and ereduce_wide at the check batch's shapes (bit-equal)")
+    for name, recs in check_field_kernels(st["shapes"], "cuda", SEED + 31, "bw6_761").items():
+        records[name] += recs
+    return st
 
 
 def bw6_field_shapes(r1cs, rdev, walks, N: int):
@@ -3553,7 +3833,7 @@ def check_bw6_msm_calls(calls, tag: str):
     """Each distinct walk, suffix and epilogue call of one BW6-761 proof
     (`calls`, as Capture keeps them) against its plain version, bit for
     bit, at 24 limbs: the walks on walk_blocks' blocks of their first
-    512 lanes (the plain version steps a position at a time over every
+    256 lanes (the plain version steps a position at a time over every
     lane: the a/b1/l walk's 147,456 lanes take minutes), the suffix and the
     epilogue whole. Returns check records by kernel."""
     records = {"walk_mixed": [], "walk_general": [], "suffix": [], "suffix_fold": []}
@@ -3572,7 +3852,7 @@ def check_bw6_msm_calls(calls, tag: str):
             label = " ".join(str(v) for v in key[1:]) + tag
             if name == "walk":
                 records["walk_" + args[3]].append(check_walk_call(args, label, 24, "bw6_761", blocks=32,
-                                                                  max_lanes=512))
+                                                                  max_lanes=256))
             elif name == "suffix":
                 records["suffix"].append(check_suffix_real(args, tag, 24, "bw6_761", label=label, sweep=False))
             else:
@@ -3610,12 +3890,17 @@ def run_bw6_path(dev, smi, records, pending):
     log(f"== BW6-761 recursion: Groth16 on the stdlib's in-circuit BLS12-377 GM17 verifier "
         f"(port_artifacts/{BW6_ARTIFACT})")
     t0 = time.perf_counter()
-    r1cs, wits, host = pending.result(timeout=900)
+    r1cs, wits, host, vec = pending.result(timeout=900)
     nnz = [sum(len(row) for row in mat) for mat in (r1cs.A, r1cs.B, r1cs.C)]
     log(f"  {r1cs.num_constraints} constraints, {r1cs.num_variables} variables ({r1cs.num_instance} instance), "
-        f"nonzeros {nnz}; read in {host['read']:.1f} s and {len(wits)} witnesses in {host['witnesses']:.1f} s of "
-        f"host Python in a child process started with the script (waited {time.perf_counter() - t0:.1f} s here)")
+        f"nonzeros {nnz}; read in {host['read']:.1f} s, {len(wits)} witnesses in {host['witnesses']:.1f} s and "
+        f"the generator's plan in {host['plan']:.1f} s of host Python in a child process started with the script "
+        f"(waited {time.perf_counter() - t0:.1f} s here)")
     result = {"host_s": host, "nnz": nnz}
+    t0 = time.perf_counter()
+    result["witness"] = bw6_card_witnesses(wits, vec, records)
+    del vec
+    log(f"  witness generator: {time.perf_counter() - t0:.1f} s")
     p = P.SCALAR_FIELDS[curve].p
     rng = random.Random(SEED + 20)
     rs = [((SEED + 3000 + 2 * i) % p, (SEED + 4001 + 2 * i) % p) for i in range(BW6_PROOFS + BW6_BATCH)]
@@ -3800,14 +4085,24 @@ def run_all(dev, t_all, pending_setup, pending_bw6):
         records[name] += recs
     del h16_calls
 
-    log(f"== batched path: prove_batch, B={BATCH} distinct sha256 witnesses")
+    log(f"== witness generator: B={BATCH} distinct sha256 witnesses on the card (interp/vectorized.py)")
+    witness_result = {"bn128": {}}
+    clear_launches()
+    wits = batch_witnesses(prog, stats=witness_result["bn128"])
+    witness_result["bn128"]["kernel_launches"] = launch_counts()
+    log("== witness generator kernels: emul and ereduce_wide at its widest sha256 calls (bit-equal)")
+    for name, recs in check_field_kernels(witness_result["bn128"]["shapes"], dev, SEED + 30).items():
+        records[name] += recs
+    log("== witness generator: Pedersen-512 and the solver program")
     t0 = time.perf_counter()
-    wits = batch_witnesses(prog)
-    log(f"  {len(wits)} witnesses by the port's interpreter: {time.perf_counter() - t0:.1f} s")
+    run_witness_path(witness_result)
+    log(f"  witness phase: {time.perf_counter() - t0:.1f} s")
+    log(f"== batched path: prove_batch, B={BATCH} distinct sha256 witnesses")
     launches_batch = run_batch_path(r1cs, pk, vk, wits, dev, smi)
     log_matvec(r1cs, dev, "bn128")
 
-    launches_bls, launches_bls_batch, r1cs_bls, wit_bls, keys_bls = run_bls12_381_path(dev, smi, records)
+    launches_bls, launches_bls_batch, r1cs_bls, wit_bls, keys_bls = run_bls12_381_path(dev, smi, records,
+                                                                                       witness_result)
 
     log("== GM17 BLS12-381 path: setup, prove, verify (sha256 as a SAP, 2^16)")
     launches_gm17_bls, widths, gm17_bls_pk = run_gm17_path(r1cs_bls, wit_bls, dev, smi)
@@ -3832,7 +4127,7 @@ def run_all(dev, t_all, pending_setup, pending_bw6):
     log("== GM17 kernel checks (kernel vs plain version at the GM17 prove's shapes, bit-equal)")
     t0 = time.perf_counter()
     gshapes = gm17_shapes(gm17_pk, dev)
-    for got in (check_kernels(gshapes, dev, " gm17", SEED + 6),
+    for got in (check_kernels(gshapes, dev, " gm17", SEED + 6, safe_mixed=False),
                 check_field_kernels(gshapes["fr"], dev, SEED + 7)):
         for name, recs in got.items():
             records[name] += recs
@@ -3866,6 +4161,7 @@ def run_all(dev, t_all, pending_setup, pending_bw6):
     bw6_result["phase_s"] = time.perf_counter() - t0
     log(f"  BW6-761 phase: {bw6_result['phase_s']:.1f} s")
     print(json.dumps({"bw6_761": bw6_result}), flush=True)
+    print(json.dumps({"witness": witness_result}), flush=True)
 
     kernels = []
     for name, recs in records.items():
@@ -3887,6 +4183,11 @@ def run_all(dev, t_all, pending_setup, pending_bw6):
             "launches_nova_per_step": nova_per_step.get(name, 0),
             "launches_bw6_761": launches_bw6.get(name, 0),
             "launches_bw6_761_batch": launches_bw6_batch.get(name, 0),
+            "launches_witness": witness_result["bn128"]["kernel_launches"].get(name, 0),
+            "launches_witness_bls12_381": witness_result["bls12_381"]["kernel_launches"].get(name, 0),
+            "launches_witness_pedersen512": witness_result["pedersen512"]["kernel_launches"].get(name, 0),
+            "launches_witness_solvers": witness_result["solvers"]["kernel_launches"].get(name, 0),
+            "launches_witness_bw6_761": bw6_result["witness"]["kernel_launches"].get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None,

@@ -56,8 +56,15 @@ and 12 limbs (BLS12-381 and BLS12-377 Fq, Z within 2^8 of q), and their
 C entry points' refusal of another width; the ceremony's ladders
 (kernels/ladder: one scalar for all points, a scalar a point, the column
 sums through accumulate_lm and over G2) on a few hundred points against
-Python-int point arithmetic, on BN254 and BLS12-381.
-Tolerance: bit equality of every output limb.
+Python-int point arithmetic, on BN254 and BLS12-381. The levelized
+witness generator (interp/vectorized) on the card: the solver program
+(port_artifacts/solvers_bn128.out.gz), Pedersen-512 and the bench's
+sha256 against the scalar interpreter (and the CPU generator where its
+plain versions are quick), a replay against the eager first call, other
+inputs replayed with no new capture, emul and ereduce_wide launched on
+every call; a failed assert and a division by zero raise the scalar
+interpreter's errors.
+Tolerance: bit equality of every output limb; exact witness values.
 """
 
 import random
@@ -1514,3 +1521,82 @@ def test_wrappers_refuse_unbuilt_widths(dev):
             cuda.check(rc, "walk")
     torch.cuda.synchronize()
 
+
+
+# -- the levelized witness generator (interp/vectorized) on the card ---------
+
+def _artifact(name):
+    import gzip
+    import os
+
+    from zokrates_tpu_torch.ir.serialize import deserialize
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if name.endswith(".gz"):
+        with gzip.open(os.path.join(root, "port_artifacts", name), "rb") as f:
+            return deserialize(f.read())
+    with open(os.path.join(root, "bench_artifacts", name), "rb") as f:
+        return deserialize(f.read())
+
+
+# program -> input vectors: solvers_bn128 (ConditionEq, Or, EuclideanDiv,
+# Bits: main(field a, bool b, u32 x, u32 y)), Pedersen-512 (Div chains,
+# 855 levels), the bench's sha256 (Xor, ShaCh, ShaAndXorAndXorAnd, Bits)
+WITNESS_CASES = {
+    "solvers_bn128.out.gz": [[5, 0, 1000003, 97], [42, 1, 0xFFFFFFFF, 1], [0, 0, 12, 5]],
+    "pedersen512_bn128.out.gz": [list(range(16)), [0xFFFFFFFF - i for i in range(16)]],
+    "sha256.out": [list(range(16)), [16 + i for i in range(16)]],
+}
+
+
+@pytest.mark.parametrize("name", sorted(WITNESS_CASES))
+def test_vectorized_witness_on_card(dev, name):
+    """The card's witness equals the scalar interpreter's (and, where the
+    plain versions are quick, the CPU generator's); the first call runs
+    every segment eagerly and captures it, the next calls replay the
+    graphs with no new capture (the same inputs again: the replay equals
+    the eager run; other inputs: their own witness); emul and ereduce_wide
+    launch on every call, the replays' counts added."""
+    from zokrates_tpu_torch.interp import vectorized as vz
+    from zokrates_tpu_torch.interp.interpreter import Interpreter
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+
+    prog = _artifact(name)
+    cases = WITNESS_CASES[name]
+    vi = vz.VectorizedInterpreter(device=dev)
+    want = [Interpreter().execute(prog, inp).values for inp in cases]
+    first = vi.execute(prog, cases[0]).values
+    assert first == want[0]
+    dp = vi.plan(prog)._exec[dev]
+    captured = dict(dp.graphs)
+    steps = len(captured)
+    assert steps == len(vi.plan(prog).segments) + (vi.plan(prog).checks is not None)
+    for inp, w in [(cases[0], first)] + list(zip(cases[1:], want[1:])):
+        before, replays = dict(pf.LAUNCHES), sum(vz.REPLAYS.values())
+        assert vi.execute(prog, inp).values == w
+        assert dp.graphs == captured
+        assert sum(vz.REPLAYS.values()) - replays == steps
+        for k in ("emul", "ereduce_wide"):
+            assert pf.LAUNCHES[k] > before.get(k, 0), k
+    if name != "pedersen512_bn128.out.gz":  # 855 levels of Fermat chains: minutes in the plain versions
+        assert vz.VectorizedInterpreter(device="cpu").execute(prog, cases[-1]).values == want[-1]
+
+
+def test_vectorized_errors_on_card(dev):
+    """A failed assert (a = 7) and a division by zero raise the scalar
+    interpreter's UnsatisfiedConstraint on the card, eagerly and on replay;
+    a wrong input count raises WrongInputCount."""
+    from zokrates_tpu_torch.interp import vectorized as vz
+    from zokrates_tpu_torch.interp.interpreter import Interpreter, UnsatisfiedConstraint, WrongInputCount
+
+    prog = _artifact("solvers_bn128.out.gz")
+    vi = vz.VectorizedInterpreter(device=dev)
+    for bad in ([7, 0, 1, 1], [0, 0, 12, 0]):
+        with pytest.raises(UnsatisfiedConstraint) as want:
+            Interpreter().execute(prog, bad)
+        for _ in range(2):
+            with pytest.raises(UnsatisfiedConstraint) as got:
+                vi.execute(prog, bad)
+            assert str(got.value) == str(want.value)
+    with pytest.raises(WrongInputCount):
+        vi.execute(prog, [1, 2])

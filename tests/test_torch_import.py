@@ -74,6 +74,13 @@ def test_sources_import_no_jax(path):
             assert top not in ("jax", "jaxlib", "zokrates_tpu"), (path, node.lineno, n)
 
 
+def test_walks_cover_the_witness_generator():
+    """Both checks reach the levelized witness generator."""
+    name = "zokrates_tpu_torch.interp.vectorized"
+    assert name in _modules()
+    assert name.replace(".", "/") + ".py" in {os.path.relpath(p, ROOT) for p in _sources()}
+
+
 def test_walks_cover_the_recursion_modules():
     """Both checks reach the in-circuit verifier's modules (embed/) and the
     BW6-761 pairing."""

@@ -243,6 +243,11 @@ class FieldOps:
         dp, _ = self._norm(d + self._c(d.device)["p"], LIMB_BITS + 1)
         return torch.where((borrow != 0)[..., None], dp, d)
 
+    def borrow_sub(self, a, b):
+        """(a - b) mod B^nl of 16-bit limbs, and the borrow out in {0, 1}
+        (the reference's _borrow_sub)."""
+        return self._norm_signed(a - b)
+
     def neg(self, a):
         d, _ = self._norm_signed(self._c(a.device)["p"] - a)
         return torch.where(self.is_zero(a)[..., None], a, d)
