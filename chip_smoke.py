@@ -31,8 +31,10 @@ Phases, each timed:
      squarings and an asm block compiled to Zir directives): g16 on
      bn128, bls12_381, bls12_377 and bw6_761 (each proof's MSM kernels at
      the curve's width only; on bls12_377, Fq2 with u^2 = -5, a tampered
-     proof and a wrong public input rejected), gm17 on bn128 and
-     bls12_381, marlin on bn128 (universal-setup -n 9), the bellman
+     proof and a wrong public input rejected), gm17 on bn128, bls12_381
+     and bw6_761 (in the bw6_761 g16 cell's process; the proof's MSM
+     kernels at 24 limbs only and emul at 24, the key's queries over
+     BW6-761's Fq), marlin on bn128 (universal-setup -n 9), the bellman
      ceremony on bn128 (mpc-init from a phase-1 radix, mpc-contribute,
      mpc-verify, mpc-export, a proof with the exported key; mixed_add_lm
      and accumulate_lm launched), nova-setup / nova-prove / nova-verify
@@ -243,13 +245,43 @@ Phases, each timed:
      suffix and epilogue call of one proof against its plain version (the
      walks on their first 64 lanes), emul, ereduce_wide, the NTT and
      mulacc_walk at the prove's shapes (B = 1)
+  13b. GM17 over BW6-761 on the same circuit at full size (its SAP of
+     247,028 rows, domain 2^18): setup in a child process started with
+     the script (bw6_gm17_setup_job: it reads the artifact for the
+     recursion's host work too; run_all waits for it after the CLI phase,
+     so that its plain products never run beside a timed kernel); the
+     key's queries to Montgomery form (emul at 24 limbs over BW6-761's Fq:
+     the a, c and h queries' 2^18 points and the b query's, G2 over Fq)
+     and BW6_GM17_PROOFS proofs of witnesses 0 and 1 (outputs 1 and 0),
+     each split into its stages, with the launch counts set to 0 just
+     before: emul at 24 and 12 limbs, the NTT at 12, the MSM kernels at 24
+     only, no plain version on the card (PlainGuard); each proof verified
+     by the BW6-761 pairing, a tampered proof (a <-> c) and a wrong public
+     input rejected; then emul (24 limbs at the queries' conversion, 12 at
+     the h stage's shapes) and the NTT at 2^18 against their plain
+     versions (its MSMs run the 24-limb walk, suffix and epilogue that
+     phase 13 holds at Groth16's shapes)
+  13c. a contribution to the recursion circuit's Groth16 key of phase 13
+     (mpc.from_keys after that phase's proofs: contribute changes the key
+     in place): contribute (one ladder over the h query's 2^17 rows and
+     the l query's real rows, mixed_add_lm at 24 limbs; the doublings
+     jec's plain products, timed apart), verify, a contribution whose
+     published [s]G1 was changed rejected, export and a Groth16 proof of
+     witness 0 with the exported key that verifies; the launch counts set
+     to 0 just before: mixed_add_lm at 24 limbs, no plain version on the
+     card and a contribution's named Python scalar multiplies only
+     (MpcGuard); then MPC_SAMPLES sampled h and l rows against the host's
+     s^-1 * P and the ladder's widest mixed_add_lm against its plain
+     version
   14. the kernels JSON line (each check record with its width in 32-bit
      limbs and its curve; launches on every path: "launches" the main
      path's, for the point kernels the ceremony's; the Marlin path's also
      per proof, the Nova path's also per step; "launches_bw6_761" and
      "launches_bw6_761_batch" the recursion's; "launches_witness*" the
      witness generator's on each program; "launches_cli" the CLI batch's
-     for rows 1-7 and the CLI ceremony's for the point kernels), the
+     for rows 1-7 and the CLI ceremony's for the point kernels;
+     "launches_gm17_bw6_761" and "launches_mpc_bw6_761" phases 13b and
+     13c's), the
      witness generator's and the CLI's JSON lines, the nvidia-smi line,
      and the result line.
 
@@ -705,8 +737,8 @@ def fr_elems(shape, nrng: np.random.Generator, p: int, near: float = 0.0):
     if near:
         sel = nrng.random(tuple(shape)) < near
         k = nrng.integers(1, 1 << 8, int(sel.sum()))
-        x[sel] = np.asarray([[((p - int(v)) >> (16 * i)) & 0xFFFF for i in range(nl)] for v in k],
-                            np.int64).reshape(-1, nl)
+        table = np.asarray([[((p - v) >> (16 * i)) & 0xFFFF for i in range(nl)] for v in range(1 << 8)], np.int64)
+        x[sel] = table[k]  # p - k's limbs
     return torch.as_tensor(x)
 
 
@@ -1434,8 +1466,9 @@ def gm17_shapes(pk, dev, curve: str = "bn128"):
     calls at the domain size n (U, W to Montgomery form, the two inverse
     transforms' n^-1, the coset tables, U^2, the 1/t, back from Montgomery
     form and two_r * u, the last four over one row); and the queries'
-    conversion to Montgomery form over Fq (12 limbs on BLS12-381) when the
-    pk first packs them."""
+    conversion to Montgomery form over Fq (12 limbs on BLS12-381, 24 on
+    BW6-761, whose G2 query is 2 coordinates over Fq a point) when the pk
+    first packs them."""
     from zokrates_tpu_torch.fields import params as P
     from zokrates_tpu_torch.kernels.msm_sorted import _windows, default_config
 
@@ -1456,7 +1489,8 @@ def gm17_shapes(pk, dev, curve: str = "bn128"):
     fr = {"emul": [("gm17 U,W to_mont", "Fr", 1, 2 * n, "row"), ("gm17 ninv x2", "Fr", 2, n, "row"),
                    ("gm17 coset x2", "Fr", 2, n, "shared"), ("gm17 U^2", "Fr", 1, n, "shared"),
                    ("gm17 1/t", "Fr", 1, n, "row"),
-                   ("gm17 G1 query", "Fq", 1, N1, "row"), ("gm17 G2 query", "Fq", 1, 4 * N2, "row")],
+                   ("gm17 G1 query", "Fq", 1, N1, "row"),
+                   ("gm17 G2 query", "Fq", 1, (2 if pkd["bx"].dim() == 2 else 4) * N2, "row")],
           "ereduce_wide": [],
           "ntt": (n, [("gm17 inverse x2", 2, True), ("gm17 forward x2", 2, False),
                       ("gm17 inverse x1", 1, True)])}
@@ -2154,7 +2188,7 @@ def profile_batch(r1cs, pk, wits, dev, rs):
     return res
 
 
-def run_bls12_381_path(dev, smi, records, witness_result):
+def run_bls12_381_path(dev, smi, records, witness_result, loaded):
     """Groth16 on BLS12-381 on the card: the sha256 circuit of
     port_artifacts/ and witnesses from the port's interpreter (witness 0,
     preimage [0, ..., 15], proves on the main path); every kernel of its
@@ -2164,15 +2198,16 @@ def run_bls12_381_path(dev, smi, records, witness_result):
     full sorted MSMs against the oracle on BLS12-381 and BLS12-377; setup,
     NPROOFS proofs and forgeries; the batch of BATCH witnesses. Returns the
     launch counts of the main path and of the batches, the r1cs, the main
-    path's witness and its key pair (the ceremony's phase starts on it)."""
+    path's witness and its key pair (the ceremony's phase starts on it).
+    `loaded`: load_sha256_bls12_381()'s result and its seconds (run_all
+    reads the artifact while it waits for the GM17 setup's child)."""
     import torch
     from zokrates_tpu_torch.schemes import groth16 as g
 
     curve, tag = "bls12_381", " bls12_381"
-    log("== BLS12-381: load sha256 (port_artifacts/sha256_bls12_381.out.gz), witnesses")
+    log("== BLS12-381: sha256 (port_artifacts/sha256_bls12_381.out.gz), witnesses")
     t0 = time.perf_counter()
-    prog, r1cs = load_sha256_bls12_381()
-    t_load = time.perf_counter() - t0
+    (prog, r1cs), t_load = loaded
     witness_result[curve] = {}
     clear_launches()
     wits = batch_witnesses(prog, stats=witness_result[curve])
@@ -2186,7 +2221,7 @@ def run_bls12_381_path(dev, smi, records, witness_result):
     walks = path_walks(rdev)
     shapes["fr"]["ereduce_wide"] += walk_reduce_shapes(walks)
     log(f"  {r1cs.curve}: {r1cs.num_constraints} constraints, {r1cs.num_variables} variables (read in "
-        f"{t_load:.1f} s); {len(wits)} witnesses by the card's generator ({time.perf_counter() - t0 - t_load:.1f} "
+        f"{t_load:.1f} s); {len(wits)} witnesses by the card's generator ({time.perf_counter() - t0:.1f} "
         f"s, the scalar check included); MSM {info}; {walk_summary(walks)}")
 
     log("== BLS12-381 kernel checks (kernel vs plain version at the prove's shapes, bit-equal)")
@@ -3560,7 +3595,7 @@ def check_mpc_kernels(calls):
     from zokrates_tpu_torch.kernels import pallas_field as pf
 
     out = {name: [] for name in MPC_KERNELS}
-    curves = {8: "bn128", 12: "bls12_381"}
+    curves = {8: "bn128", 12: "bls12_381", 24: "bw6_761"}
     for (name, width, stage), (p, args, kw) in sorted(calls.items(), key=lambda kv: kv[0]):
         label = {"bellman_mpc.contribute": "mpc contribution", "mpc.contribute": "mpc contribution",
                  "bellman_mpc.initialize": "mpc term ladder" if name == "mixed_add_lm" else "mpc column sums"
@@ -3715,9 +3750,40 @@ def bw6_witnesses(prog, count: int = BW6_BATCH):
     return out, flats
 
 
+# the recursion circuit as bw6_gm17_setup_job read it, for bw6_host_job,
+# which runs next in the same child process
+_BW6_READ = {}
+
+
+def bw6_gm17_setup_job():
+    """GM17 setup of the recursion circuit on the card, in a child process
+    started with the script (the first of its two jobs): the artifact read,
+    kept for bw6_host_job, and gm17.setup with a seeded rng (its
+    fixed-base products are plain torch at 48 limbs: minutes). run_all
+    waits for it after the CLI phase, so that it never runs beside a timed
+    kernel. Returns (pk, vk, {stage: seconds})."""
+    sys.path.insert(0, ROOT)
+    import torch
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.schemes import gm17
+
+    t0 = time.perf_counter()
+    prog, r1cs = load_bw6_recursion()
+    t1 = time.perf_counter()
+    _BW6_READ.update(prog=prog, r1cs=r1cs, read=t1 - t0)
+    p = P.SCALAR_FIELDS[r1cs.curve].p
+    rng = random.Random(SEED + 40)
+    pk, vk = gm17.setup(r1cs, rng=lambda: rng.randrange(1, p), device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    torch.cuda.empty_cache()
+    return pk, vk, {"read": t1 - t0, "setup": t2 - t1}
+
+
 def bw6_host_job():
     """The recursion circuit's host work, run in a child process beside the
-    earlier phases: the artifact read (deserialize, r1cs_from_prog),
+    earlier phases: the artifact read (deserialize, r1cs_from_prog; taken
+    from bw6_gm17_setup_job where that ran first in this process),
     BW6_BATCH witnesses by the scalar interpreter and the levelized
     generator's plan (interp/vectorized.build_plan). Returns (r1cs,
     witnesses, {stage: seconds}, (head, plan, flat inputs)): head is the
@@ -3729,13 +3795,17 @@ def bw6_host_job():
     from zokrates_tpu_torch.ir.program import Prog
 
     t0 = time.perf_counter()
-    prog, r1cs = load_bw6_recursion()
+    if _BW6_READ:
+        prog, r1cs, read_s = _BW6_READ.pop("prog"), _BW6_READ.pop("r1cs"), _BW6_READ.pop("read")
+    else:
+        prog, r1cs = load_bw6_recursion()
+        read_s = time.perf_counter() - t0
     t1 = time.perf_counter()
     wits, flats = bw6_witnesses(prog)
     t2 = time.perf_counter()
     plan = build_plan(prog)
     head = Prog(prog.curve, prog.arguments, prog.return_count, [], prog.solvers)
-    return r1cs, wits, {"read": t1 - t0, "witnesses": t2 - t1, "plan": time.perf_counter() - t2}, (head, plan, flats)
+    return r1cs, wits, {"read": read_s, "witnesses": t2 - t1, "plan": time.perf_counter() - t2}, (head, plan, flats)
 
 
 def bw6_card_witnesses(wits, vec, records):
@@ -3976,7 +4046,197 @@ def run_bw6_path(dev, smi, records, pending):
             records[name] += recs
     result["checks_s"] = time.perf_counter() - t0
     log(f"  checks: {result['checks_s']:.1f} s")
-    return launches, launches_batch, result
+    return launches, launches_batch, result, (r1cs, wits, (pk, vk))
+
+
+BW6_GM17_PROOFS = 2            # GM17 proofs of the recursion circuit: witnesses 0 and 1
+
+
+def run_bw6_gm17_path(r1cs, wits, keys, dev, smi, records):
+    """GM17 over BW6-761 on the recursion circuit at full size, the key
+    from bw6_gm17_setup_job (`keys`: pk, vk, its seconds): the key's
+    queries to Montgomery form on the card (pk.dev: emul at 24 limbs) and
+    BW6_GM17_PROOFS proofs of witnesses 0 and 1 with fixed r, each split
+    into its stages, with the launch counts set to 0 just before: the MSM
+    kernels at 24 limbs only, emul at 24 and 12, the NTT at 12, no plain
+    version on the card in the h stage or the MSMs (PlainGuard); each
+    proof verified by the BW6-761 pairing (outputs 1 and 0), a tampered
+    proof (a <-> c) and a wrong public input rejected; then emul and the
+    NTT at that prove's shapes against their plain versions (appended to
+    `records`). Returns the launch counts and the phase's results."""
+    import torch
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.kernels import msm_sorted, ntt_pallas, pallas_field
+    from zokrates_tpu_torch.schemes import gm17
+
+    curve = r1cs.curve
+    p = P.SCALAR_FIELDS[curve].p
+    pk, vk, child_s = keys
+    log(f"== GM17 BW6-761: the recursion circuit as a SAP of {len(pk.sap_U)} rows, domain {pk.domain_size}, "
+        f"{len(pk.a_query)} variables; setup {child_s['setup']:.1f} s in a child process (read "
+        f"{child_s['read']:.1f} s)")
+    result = {"setup_s": child_s["setup"], "read_s": child_s["read"]}
+    clear_launches()
+    proofs, walls, splits = [], [], []
+    with PlainGuard() as guard, ShapeTally() as tally:
+        t0 = time.perf_counter()
+        pkd = pk.dev(dev)
+        torch.cuda.synchronize()
+        result["key_encoding_s"] = time.perf_counter() - t0
+        log(f"  the key's queries to Montgomery form on the card: {result['key_encoding_s']:.2f} s (a, c, h "
+            f"{tuple(pkd['a'].shape)}, b {tuple(pkd['bx'].shape)} over Fq)")
+        for i in range(BW6_GM17_PROOFS):
+            r = (SEED + 5000 + i) % p
+            timings = {}
+            t0 = time.perf_counter()
+            proofs.append(gm17.prove(r1cs, pk, wits[i], rng=lambda: r, device=dev, timings=timings))
+            walls.append(time.perf_counter() - t0)
+            splits.append(timings)
+            log(f"  prove {i}: {walls[-1] * 1e3:.1f} ms  "
+                + "  ".join(f"{k}={v * 1e3:.1f}ms" for k, v in timings.items()))
+    launches = launch_counts()
+    widths = {**msm_sorted.WIDTH_LAUNCHES, **pallas_field.WIDTH_LAUNCHES, **ntt_pallas.WIDTH_LAUNCHES}
+    result["shapes"] = tally.report(BW6_GM17_PROOFS, "GM17 BW6-761 proof")
+    log(f"  launches over the encoding and {BW6_GM17_PROOFS} proofs: {launches}; by (kernel, 32-bit limbs) "
+        f"{widths}; plain versions on the card in the h stage and MSMs: {guard.calls or 0}")
+    if guard.calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors on the GM17 BW6-761 path: {guard.calls}")
+    missing = [k for k in GM17_KERNELS if launches.get(k, 0) <= 0]
+    check_width(24, "the GM17 BW6-761 path")
+    field = {k: v for k, v in widths.items() if k[0] in ("emul", "ntt")}
+    if missing or set(field) != {("emul", 24), ("emul", 12), ("ntt", 12)}:
+        raise AssertionError(f"the GM17 BW6-761 path must launch {GM17_KERNELS}, emul at 24 and 12 limbs and "
+                             f"the NTT at 12 only: {widths}")
+    result["verify_s"] = []
+    for i, proof in enumerate(proofs):
+        t0 = time.perf_counter()
+        ok = gm17.verify(vk, proof)
+        result["verify_s"].append(time.perf_counter() - t0)
+        out = int(proof.inputs[-1], 16)
+        log(f"  verify {i}: {ok} ({result['verify_s'][-1]:.2f} s); output {out}")
+        if not ok or out != (1 if i == 0 else 0):
+            raise AssertionError(f"GM17 BW6-761 proof {i} failed to verify or has output {out}")
+    check_forgeries(gm17, vk, proofs[0], curve)
+    result.update(prove_ms=[w * 1e3 for w in walls], split_ms=[{k: v * 1e3 for k, v in t.items()} for t in splits])
+    log(f"  GM17 BW6-761: {walls[-1] * 1e3:.1f} ms the second proof ({smi})")
+
+    log("== GM17 BW6-761 field kernel checks (emul at 24 limbs over Fq, 12 over r; the NTT at 2^18; bit-equal)")
+    t0 = time.perf_counter()
+    for name, recs in check_field_kernels(gm17_shapes(pk, dev, curve)["fr"], dev, SEED + 41, curve, " gm17 bw6",
+                                          near=0.25).items():
+        records[name] += recs
+    pk._dev.clear()
+    torch.cuda.empty_cache()
+    result["checks_s"] = time.perf_counter() - t0
+    log(f"  checks: {result['checks_s']:.1f} s")
+    return launches, result
+
+
+class LadderClock:
+    """While active, the wall time of a contribution's ladder apart: its
+    doublings (jec's CurveOps.double, plain products) and its mixed_add_lm
+    calls (the kernel, with its layout), each call ended by a device
+    synchronize, and the calls counted."""
+
+    def __init__(self):
+        self.s = {"double": 0.0, "mixed_add_lm": 0.0}
+        self.n = {"double": 0, "mixed_add_lm": 0}
+
+    def _timed(self, name, fn):
+        def wrapped(*args, **kw):
+            import torch
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.s[name] += time.perf_counter() - t0
+            self.n[name] += 1
+            return out
+        return wrapped
+
+    def __enter__(self):
+        from zokrates_tpu_torch.kernels import jec, ladder
+
+        self.saved = [(jec.CurveOps, "double", jec.CurveOps.double), (ladder, "mixed_add_lm", ladder.mixed_add_lm)]
+        jec.CurveOps.double = self._timed("double", jec.CurveOps.double)
+        ladder.mixed_add_lm = self._timed("mixed_add_lm", ladder.mixed_add_lm)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+def run_bw6_mpc(r1cs, wit, keys, dev, smi, records):
+    """A contribution to the recursion circuit's Groth16 key (`keys`,
+    run_bw6_path's pair after its proofs: mpc.from_keys takes the key over
+    and contribute changes it in place), as the CLI's mpc commands drive
+    it: one contribute (its ladder over the h query's 2^17 rows and the l
+    query's real rows: mixed_add_lm at 24 limbs, the doublings timed
+    apart, LadderClock), verify, a contribution whose published [s]G1 was
+    changed rejected, export and a Groth16 proof of `wit` with the
+    exported key that verifies; the launch counts set to 0 just before:
+    mixed_add_lm at 24 limbs, no plain version on the card and only the
+    contribution's named Python scalar multiplies (MpcGuard; BW6-761's G2
+    points are G1's type, so its two G2 multiplies count as G1); then
+    MPC_SAMPLES sampled h and l rows against the host's s^-1 * P
+    (check_scalings) and the ladder's widest mixed_add_lm call against its
+    plain version (appended to `records`). Returns the launch counts and
+    the phase's results."""
+    from zokrates_tpu_torch.fields import params as P
+    from zokrates_tpu_torch.kernels import pallas_field
+    from zokrates_tpu_torch.schemes import groth16 as g, mpc
+
+    curve = r1cs.curve
+    p = P.SCALAR_FIELDS[curve].p
+    clock = StepClock()
+    log(f"== schemes/mpc on {curve}: a contribution to the recursion circuit's Groth16 key (h "
+        f"{keys[0].h_p128.shape[0]} rows, l {int(keys[0].l_mask.sum())} real rows)")
+    clear_launches()
+    with MpcGuard() as guard:
+        params = clock("init (from_keys on the BW6-761 phase's key pair)", lambda: mpc.from_keys(*keys))
+        with LadderClock() as ladder_clock:
+            clock("contribute", lambda: mpc.contribute(params, "bw6", device=dev))
+        log(f"  the ladder: {ladder_clock.n['double']} doublings {ladder_clock.s['double']:.2f} s (plain products "
+            f"at 48 limbs), {ladder_clock.n['mixed_add_lm']} mixed_add_lm calls "
+            f"{ladder_clock.s['mixed_add_lm']:.2f} s (the kernel at 24 limbs and its layout)")
+        if not clock("verify", lambda: mpc.verify(params, r1cs)):
+            raise AssertionError("the BW6-761 ceremony failed to verify")
+        contrib = params.contributions[0]
+        honest = contrib.pk_s_g1
+        contrib.pk_s_g1 = honest + honest
+        _expect_reject("a contribution whose published [s]G1 was changed", lambda: mpc.verify(params, r1cs))
+        contrib.pk_s_g1 = honest
+        pk, vk = mpc.export_keys(params)
+        draws = iter([(SEED + 90) % p, (SEED + 91) % p])
+        proof = clock("prove with the exported key", lambda: g.prove(r1cs, pk, wit, rng=lambda: next(draws),
+                                                                     device=dev))
+        if not g.verify(vk, proof):
+            raise AssertionError("a proof with the BW6-761 ceremony's key failed to verify")
+    launches = launch_counts()
+    widths = {k: v for k, v in pallas_field.WIDTH_LAUNCHES.items() if k[0] in MPC_KERNELS}
+    stages = {}
+    for (stage, group), n in guard.muls.items():
+        stages.setdefault(stage, {})[group] = n
+    want = {"mpc.contribute": {"G1": sum(MPC_MULS["mpc.contribute"])}}
+    log(f"  launches: {launches}; point kernels by width {widths}; plain versions on the card: "
+        f"{guard.calls or 0}; Python scalar multiplies by stage {stages} (allowed: {want}) ({smi})")
+    if widths.get(("mixed_add_lm", 24), 0) <= 0 or set(widths) != {("mixed_add_lm", 24)}:
+        raise AssertionError(f"the BW6-761 contribution must launch mixed_add_lm at 24 limbs only: {widths}")
+    if guard.calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors in the BW6-761 ceremony: {guard.calls}")
+    if stages != want:
+        raise AssertionError(f"Python scalar multiplies in the BW6-761 ceremony: {stages}, allowed {want}")
+    log("== BW6-761 ceremony checks: sampled h and l rows against the host, mixed_add_lm at 24 limbs against its "
+        "plain version")
+    t0 = time.perf_counter()
+    check_scalings(guard.scalings, np.random.default_rng(SEED + 92))
+    for name, recs in check_mpc_kernels(guard.kernel_calls).items():
+        records[name] += recs
+    log(f"  checks: {time.perf_counter() - t0:.1f} s")
+    return launches, {"ms": clock.ms, "ladder_s": ladder_clock.s, "ladder_calls": ladder_clock.n,
+                      "point_kernel_widths": {f"{k}@{w}": v for (k, w), v in widths.items()}}
 
 # ---------------------------------------------------------------------------
 # phase 2b: the CLI (python -m zokrates_tpu_torch), as a user drives it
@@ -3994,8 +4254,10 @@ CLI_TOY = ("def main(private field x, field y) -> field {\n    field mut acc = x
 CLI_NOVA_STEP = "def main(public field z) -> field {\n    return z * z + z;\n}\n"
 # the toy matrix's cells, in the child processes that run them side by
 # side (about equal times: a toy Groth16 setup takes 30-50 s on the card,
-# its plain field products launch-bound; GM17's 9 s)
-CLI_TOY_JOBS = ((("g16", "bn128"),), (("g16", "bls12_381"),), (("g16", "bls12_377"),), (("g16", "bw6_761"),),
+# its plain field products launch-bound; GM17's 9 s on the BLS12 curves
+# and BN254, more over BW6-761's 48 limbs)
+CLI_TOY_JOBS = ((("g16", "bn128"),), (("g16", "bls12_381"),), (("g16", "bls12_377"),),
+                (("g16", "bw6_761"), ("gm17", "bw6_761")),
                 (("gm17", "bn128"), ("gm17", "bls12_381"), ("marlin", "bn128"), ("nova", "pallas")),
                 (("mpc", "bn128"),))
 CLI_MARLIN_SIZE = 9            # universal-setup -n for the toy: 2^9 powers of tau (it needs 377)
@@ -4367,8 +4629,13 @@ def toy_cell(run: CliRunner, scheme: str, curve: str, ms: dict):
     clear_launches()
     prove(out, wit, p(tag + ".pk"), p(tag + ".vk"), scheme)
     launches = launch_counts()
-    if scheme == "g16":
+    if scheme == "g16" or tag == "gm17 bw6_761":
         check_width({"bn128": 8, "bls12_381": 12, "bls12_377": 12, "bw6_761": 24}[curve], f"the CLI's {tag} proof")
+    if tag == "gm17 bw6_761":
+        from zokrates_tpu_torch.kernels import pallas_field
+
+        if pallas_field.WIDTH_LAUNCHES.get(("emul", 24), 0) <= 0:
+            raise AssertionError(f"the CLI's {tag} proof did not launch emul at 24 limbs (the key's queries)")
     if tag == "g16 bls12_377":
         with open(p(tag + ".vk")) as f, open(p(tag + ".proof")) as g_:
             check_forgeries(g, VerificationKey.from_json(json.load(f)), Proof.from_json(json.load(g_)), curve)
@@ -4465,12 +4732,16 @@ def main():
     # the CLI's compile of sha256 are host work alone: each runs in a child
     # process beside the phases before its own, which takes it out of the
     # script's wall time (a child that dies fails the result with
-    # BrokenProcessPool)
+    # BrokenProcessPool). The recursion circuit's child first reads it and
+    # runs its GM17 setup on the card (bw6_gm17_setup_job), then its host
+    # work (bw6_host_job): one worker, so the second job finds the read
     wd = tempfile.mkdtemp(prefix="zkt_cli_")
+    spawn = multiprocessing.get_context("spawn")
     try:
-        with ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("spawn")) as host_jobs:
-            pending = [host_jobs.submit(nova_setup_job), host_jobs.submit(bw6_host_job),
-                       host_jobs.submit(cli_compile_job, wd)]
+        with ProcessPoolExecutor(2, mp_context=spawn) as host_jobs, \
+                ProcessPoolExecutor(1, mp_context=spawn) as bw6_jobs:
+            pending = [host_jobs.submit(nova_setup_job), bw6_jobs.submit(bw6_gm17_setup_job),
+                       bw6_jobs.submit(bw6_host_job), host_jobs.submit(cli_compile_job, wd)]
             try:
                 run_all(dev, t_all, *pending, wd)
             finally:
@@ -4481,7 +4752,7 @@ def main():
         shutil.rmtree(wd, ignore_errors=True)
 
 
-def run_all(dev, t_all, pending_setup, pending_bw6, pending_compile, wd):
+def run_all(dev, t_all, pending_setup, pending_gm17_bw6, pending_bw6, pending_compile, wd):
     """Every phase, then the kernels line, the card's line and the result."""
     import torch
     from zokrates_tpu_torch.kernels import cuda
@@ -4530,6 +4801,13 @@ def run_all(dev, t_all, pending_setup, pending_bw6, pending_compile, wd):
     cli_run, launches_cli, cli_result = run_cli_path(dev, smi, pending_compile, wd)
     log(f"  CLI phase: {cli_result['phase_s']:.1f} s")
     print(json.dumps({"cli": cli_result}), flush=True)
+    t0 = time.perf_counter()
+    bls_loaded = (load_sha256_bls12_381(), time.perf_counter() - t0)  # host work, while the child ends its setup
+    t1 = time.perf_counter()
+    gm17_bw6_keys = pending_gm17_bw6.result(timeout=1100)
+    log(f"== GM17 BW6-761 setup in its child process: {gm17_bw6_keys[2]['setup']:.1f} s (the BLS12-381 sha256 "
+        f"artifact read meanwhile, {bls_loaded[1]:.1f} s; then waited {time.perf_counter() - t1:.1f} s: the "
+        f"setup runs beside no timed kernel)")
 
     log("== kernel checks (kernel vs plain version, bit-equal)")
     t0 = time.perf_counter()
@@ -4566,7 +4844,8 @@ def run_all(dev, t_all, pending_setup, pending_bw6, pending_compile, wd):
     log_matvec(r1cs, dev, "bn128")
 
     launches_bls, launches_bls_batch, r1cs_bls, wit_bls, keys_bls = run_bls12_381_path(dev, smi, records,
-                                                                                       witness_result)
+                                                                                       witness_result, bls_loaded)
+    del bls_loaded
 
     log("== GM17 BLS12-381 path: setup, prove, verify (sha256 as a SAP, 2^16)")
     launches_gm17_bls, widths, gm17_bls_pk = run_gm17_path(r1cs_bls, wit_bls, dev, smi)
@@ -4620,9 +4899,18 @@ def run_all(dev, t_all, pending_setup, pending_bw6, pending_compile, wd):
     print(json.dumps({"mpc": mpc_result}), flush=True)
 
     t0 = time.perf_counter()
-    launches_bw6, launches_bw6_batch, bw6_result = run_bw6_path(dev, smi, records, pending_bw6)
+    launches_bw6, launches_bw6_batch, bw6_result, (r1cs_bw6, wits_bw6, keys_bw6) = run_bw6_path(
+        dev, smi, records, pending_bw6)
     bw6_result["phase_s"] = time.perf_counter() - t0
-    log(f"  BW6-761 phase: {bw6_result['phase_s']:.1f} s")
+    t0 = time.perf_counter()
+    launches_gm17_bw6, bw6_result["gm17"] = run_bw6_gm17_path(r1cs_bw6, wits_bw6, gm17_bw6_keys, dev, smi, records)
+    del gm17_bw6_keys
+    bw6_result["gm17"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches_mpc_bw6, bw6_result["mpc"] = run_bw6_mpc(r1cs_bw6, wits_bw6[0], keys_bw6, dev, smi, records)
+    bw6_result["mpc"]["phase_s"] = time.perf_counter() - t0
+    log(f"  BW6-761 phases: Groth16 {bw6_result['phase_s']:.1f} s, GM17 {bw6_result['gm17']['phase_s']:.1f} s, "
+        f"the contribution {bw6_result['mpc']['phase_s']:.1f} s")
     print(json.dumps({"bw6_761": bw6_result}), flush=True)
     print(json.dumps({"witness": witness_result}), flush=True)
 
@@ -4647,6 +4935,8 @@ def run_all(dev, t_all, pending_setup, pending_bw6, pending_compile, wd):
             "launches_nova_per_step": nova_per_step.get(name, 0),
             "launches_bw6_761": launches_bw6.get(name, 0),
             "launches_bw6_761_batch": launches_bw6_batch.get(name, 0),
+            "launches_gm17_bw6_761": launches_gm17_bw6.get(name, 0),
+            "launches_mpc_bw6_761": launches_mpc_bw6.get(name, 0),
             "launches_witness": witness_result["bn128"]["kernel_launches"].get(name, 0),
             "launches_witness_bls12_381": witness_result["bls12_381"]["kernel_launches"].get(name, 0),
             "launches_witness_pedersen512": witness_result["pedersen512"]["kernel_launches"].get(name, 0),

@@ -17,7 +17,17 @@ time, and the h MSM of one proof's h scalars in both forms
 (chip_smoke.compare_h_msm: shared-bucket against dense, equal as points,
 each timed).
 
-Usage: python3 port_tools/bw6_phase.py [--h16]
+With --beyond, chip_smoke.py's phases 13b and 13c after it: the child
+process first runs GM17's setup on the card (chip_smoke.bw6_gm17_setup_job;
+this script waits for it before the Groth16 phase, so that the setup runs
+alone but for the build), then the host work; after the Groth16 phase,
+chip_smoke.run_bw6_gm17_path (the key's encoding, 2 proofs, verification,
+the forgeries, emul and the NTT at that prove's shapes) and
+chip_smoke.run_bw6_mpc (a contribution to the phase's Groth16 key, verify,
+a tampered contribution, a proof with the exported key, the sampled rows
+and mixed_add_lm at 24 limbs against their references).
+
+Usage: python3 port_tools/bw6_phase.py [--h16] [--beyond]
 """
 import argparse
 import json
@@ -40,20 +50,26 @@ def main():
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--h16", action="store_true")
+    ap.add_argument("--beyond", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bw6_phase: no CUDA device")
     t0 = time.perf_counter()
     with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        pending_gm17 = pool.submit(cs.bw6_gm17_setup_job) if args.beyond else None
         pending = pool.submit(cs.bw6_host_job)
         built = cuda.build()
         cs.log(f"build {time.perf_counter() - t0:.1f} s")
         for so, output in built.values():
-            if "msm" in so:
+            if "msm" in so or "point" in so or "field" in so:
                 for line in output.splitlines():
                     if "registers" in line or "spill" in line or "Compiling entry" in line:
                         cs.log("    " + line.strip())
         cuda.load()
+        if args.beyond:
+            gm17_keys = pending_gm17.result()
+            cs.log(f"GM17 setup in the child process: {gm17_keys[2]} s; waited until "
+                   f"{time.perf_counter() - t0:.1f} s")
         parts = {}
 
         def timed(name, fn):
@@ -82,12 +98,23 @@ def main():
         groth16.setup, groth16.prove = keep_setup, keep_prove
         records = {k: [] for k in cs.REPLACES}
         t1 = time.perf_counter()
+        dev, smi = torch.device("cuda"), cs.nvidia_smi()
         try:
-            launches, launches_batch, result = cs.run_bw6_path(torch.device("cuda"), cs.nvidia_smi(), records,
-                                                               pending)
+            launches, launches_batch, result, (r1cs, wits, keys) = cs.run_bw6_path(dev, smi, records, pending)
         finally:
             cs.log("setup's parts: " + ", ".join(f"{k} {v:.2f} s" for k, v in parts.items()))
     cs.log(f"BW6-761 phase {time.perf_counter() - t1:.1f} s; total {time.perf_counter() - t0:.1f} s")
+    if args.beyond:
+        groth16.setup, groth16.prove = setup, prove
+        t2 = time.perf_counter()
+        launches_gm17, result["gm17"] = cs.run_bw6_gm17_path(r1cs, wits, gm17_keys, dev, smi, records)
+        result["gm17"]["phase_s"] = time.perf_counter() - t2
+        t2 = time.perf_counter()
+        launches_mpc, result["mpc"] = cs.run_bw6_mpc(r1cs, wits[0], keys, dev, smi, records)
+        result["mpc"]["phase_s"] = time.perf_counter() - t2
+        result.update(launches_gm17=launches_gm17, launches_mpc=launches_mpc)
+        cs.log(f"GM17 {result['gm17']['phase_s']:.1f} s, the contribution {result['mpc']['phase_s']:.1f} s; "
+               f"total {time.perf_counter() - t0:.1f} s")
     if args.h16:
         pk, r1cs = seen["keys"][0], seen["r1cs"]
         t2 = time.perf_counter()

@@ -39,7 +39,9 @@ collision planted in one lane's second segment; the epilogue at lw = 1,
 2, 128 and 1024 over one and three windows;
 canonical field elements and lazy sums near 2^31 and 2^47 (ragged
 lengths, one-tile totals) from seeded numpy; emul
-at 8 and 12 limbs (BN254's r, BLS12-381's q) with b shared, full, one row
+at 8, 12 and 24 limbs (BN254's r, BLS12-381's q, BW6-761's q: tiles of
+64 elements at 24, and GM17's key encoding over it at 2^19 one row) with
+b shared, full, one row
 and a strided a and b, rows that leave the last tile short, and the
 batched prove's shapes ((48, 2^15) shared and one row, (16, 2^15) full,
 strided and one row, (16, 27281) one row), and the C entry point's refusal
@@ -52,8 +54,11 @@ random plans at 1024 to 32768 lanes (runs that end at row changes and
 at lane ends, lanes of padding), B = 1, 3 and 16, over BN254's and
 BLS12-381's r, and groth16._matvec_walk against the COO matvec; the point kernels with P at infinity, P == Q,
 P == -Q, digits 0 and >= n_buckets and buckets hit several times, at 8
-and 12 limbs (BLS12-381 and BLS12-377 Fq, Z within 2^8 of q), and their
-C entry points' refusal of another width; the ceremony's ladders
+and 12 limbs (BLS12-381 and BLS12-377 Fq, Z within 2^8 of q), the mixed
+add also at 24 (BW6-761's Fq), and their C entry points' refusal of
+another width (the accumulation's of 24, and of 48 16-bit limbs by
+ereduce_wide, accumulate_lm and the field check of the NTT and the
+matvec walk, cuda.NL32_FIELD); the ceremony's ladders
 (kernels/ladder: one scalar for all points, a scalar a point, the column
 sums through accumulate_lm and over G2) on a few hundred points against
 Python-int point arithmetic, on BN254 and BLS12-381. The levelized
@@ -493,12 +498,18 @@ def test_wrappers_refuse_mixed_devices(dev):
 
 R_MOD = g1_group("bn128").r
 Q381 = g1_group("bls12_381").q
+QBW6 = g1_group("bw6_761").q
+
+
+def _nl(p):
+    """16-bit limbs of an element: 16 for a 254/255-bit p, 24 for a
+    377/381-bit one, 48 for BW6-761's 761-bit q."""
+    return field_ops(p).nl
 
 
 def _elems(shape, seed, p=R_MOD):
-    """Canonical residues mod p as (..., nl) int64 16-bit limbs (nl = 16 for
-    a 254/255-bit p, 24 for a 381-bit one)."""
-    nl = 16 if p.bit_length() <= 256 else 24
+    """Canonical residues mod p as (..., nl) int64 16-bit limbs (_nl)."""
+    nl = _nl(p)
     rng = np.random.default_rng(seed)
     x = rng.integers(0, 1 << 16, tuple(shape) + (nl,), dtype=np.int64)
     x[..., -1] = rng.integers(0, p >> (16 * nl - 16), tuple(shape))
@@ -509,7 +520,7 @@ def _emul_operands(kind, B, L, seed, p, dev):
     """(a, b) for emul: b "shared" (L, nl), "full" (B, L, nl), "row" (one
     element, row stride 0), or "strided" (a and b slices [:, 0], [:, 2] of a
     (B, 3, L, nl) tensor, as the h stage's A*B)."""
-    nl = 16 if p.bit_length() <= 256 else 24
+    nl = _nl(p)
     a = _elems((B, L), seed, p).to(dev)
     if kind == "shared":
         return a, _elems((L,), seed + 1, p).to(dev)
@@ -521,10 +532,12 @@ def _emul_operands(kind, B, L, seed, p, dev):
     return abc[:, 0], abc[:, 2]
 
 
-@pytest.mark.parametrize("p", [R_MOD, Q381], ids=["8limbs", "12limbs"])
+@pytest.mark.parametrize("p", [R_MOD, Q381, QBW6], ids=["8limbs", "12limbs", "24limbs"])
 @pytest.mark.parametrize("kind", ["shared", "full", "row", "strided"])
 @pytest.mark.parametrize("B,L", [(3, 1000), (1, 1), (2, 129)])
 def test_emul_kernel_equals_plain(dev, kind, p, B, L):
+    """At 8, 12 and 24 limbs (24: BW6-761's Fq, tiles of 64 elements, so
+    129 is two full tiles and one of 1)."""
     from zokrates_tpu_torch.kernels import pallas_field as pf
 
     a, b = _emul_operands(kind, B, L, 1, p, dev)
@@ -545,6 +558,21 @@ def test_emul_kernel_batch_shapes(dev, kind, B, L):
     out = pf.emul(R_MOD, a, b)
     torch.cuda.synchronize()
     assert torch.equal(out, pf.emul_plain(R_MOD, a, b))
+
+
+@pytest.mark.parametrize("kind,B,L", [("row", 1, 1 << 19), ("shared", 2, 4097), ("full", 1, 65)])
+def test_emul_kernel_24_limbs_gm17_shapes(dev, kind, B, L):
+    """emul at 24 limbs at GM17's key encoding over BW6-761's Fq (the
+    a, c and h queries' 2^18 points: x and y, one R^2 row), a shared b, a
+    full one and a row of one tile and one element."""
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+
+    a, b = _emul_operands(kind, B, L, 60, QBW6, dev)
+    before = pf.WIDTH_LAUNCHES[("emul", 24)]
+    out = pf.emul(QBW6, a, b)
+    torch.cuda.synchronize()
+    assert pf.WIDTH_LAUNCHES[("emul", 24)] == before + 1
+    assert torch.equal(out, pf.emul_plain(QBW6, a, b))
 
 
 def test_emul_entry_point_refuses_unknown_widths(dev):
@@ -927,7 +955,8 @@ def test_accumulate_lm_12_limbs_equals_plain(dev, curve):
 
 def test_point_entry_points_refuse_unknown_widths(dev):
     """The C entry points launch nothing at a width they have no
-    instantiation of."""
+    instantiation of: 4 and 16 limbs, and 24 for the accumulation (no path
+    accumulates over BW6-761's Fq)."""
     from zokrates_tpu_torch.kernels import cuda
 
     lib = cuda.load()
@@ -935,9 +964,10 @@ def test_point_entry_points_refuse_unknown_widths(dev):
     t = torch.zeros((48, n), dtype=torch.int32, device=dev)
     _, pl, one, n0, _ = cuda.field_params(Q, None, cuda.NL32)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for nl in (4, 16):
-        rc = lib.zkt_mixed_add_lm(*(t.data_ptr() for _ in range(8)), n, 256, nl, pl, one, n0, stream)
-        assert rc != 0
+    for nl in (4, 16, 24):
+        if nl != 24:
+            rc = lib.zkt_mixed_add_lm(*(t.data_ptr() for _ in range(8)), n, 256, nl, pl, one, n0, stream)
+            assert rc != 0
         rc = lib.zkt_accumulate_lm(t.data_ptr(), t.data_ptr(), t.data_ptr(), t.data_ptr(), t.data_ptr(),
                                    t.data_ptr(), 1, n, 4, 256, nl, pl, one, n0, stream)
         assert rc != 0
@@ -1433,6 +1463,43 @@ def test_suffix_fold_kernel_24_limbs_equals_plain(dev, lw, W, L):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("z", ["random", "near_q"])
+def test_mixed_add_lm_24_limbs_equals_plain(dev, z):
+    """mixed_add_lm at 24 limbs (BW6-761's Fq, a contribution's ladder):
+    P == Q (the doubling), P == -Q (the cancellation) and P at infinity,
+    Z random or within 2^8 of q on every other row, N = 768 (three blocks
+    of 256), against the plain version."""
+    from zokrates_tpu_torch.kernels import pallas_field as pf
+
+    affine, jac, q = _rows_bw6("G1", seed=120)
+    nl = 48
+    nrng = np.random.default_rng(121)
+    n, N = affine.shape[0], 768
+    qi = nrng.integers(0, n, N)
+    pi = nrng.integers(0, jac.shape[0] - 1, N)
+    if z == "near_q":
+        pi = pi - pi % 2                       # the rows with Z within 2^8 of q
+    pi[0::4] = qi[0::4]                        # P == Q
+    pi[1::4] = (qi[1::4] + n // 2) % n         # P == -Q
+    pi[2::8] = jac.shape[0] - 1                # P at infinity
+
+    def rows(t, lo):
+        return t[:, lo : lo + nl].T.contiguous().to(dev)
+
+    args = [rows(jac[pi], 0), rows(jac[pi], nl), rows(jac[pi], 2 * nl), rows(affine[qi], 0), rows(affine[qi], nl)]
+    before = pf.WIDTH_LAUNCHES[("mixed_add_lm", 24)]
+    got = pf.mixed_add_lm(q, *args)
+    torch.cuda.synchronize()
+    assert pf.WIDTH_LAUNCHES[("mixed_add_lm", 24)] == before + 1
+    want = pf.mixed_add_lm_plain(q, *args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    zero = (got[2] == 0).all(0).cpu()
+    assert zero[1::4].all() and not zero[0::4].any()  # cancellations, doublings
+    one = torch.as_tensor(field_ops(q).encode([1])[0], dtype=torch.int32)
+    assert (got[2][:, 2::8].cpu() == one[:, None]).all()  # P at infinity: Z = one
+
+
 @pytest.mark.parametrize("B,L,top", [(2, 777, 1 << 31), (3, 1, 1 << 31), (2, 777, 1 << 47), (1, 128, 1 << 31),
                                      (1, 129, 1 << 31), (4, 98304, 1 << 31)])
 def test_ereduce_wide_kernel_12_limbs_equals_plain(dev, B, L, top):
@@ -1495,9 +1562,12 @@ def test_ntt_kernel_12_limbs_equals_plain(dev, logn, batch, inverse):
 def test_wrappers_refuse_unbuilt_widths(dev):
     """A CUDA tensor at a width no kernel is built for raises before any
     launch: 16 32-bit limbs (a 512-bit field) in the walk, the suffix, the
-    epilogue, ereduce_wide, emul and the NTT's field check; 24 limbs over
-    Fq2 (no curve has one) at the wide walk's C entry point, and 24 limbs
-    at the 8- and 12-limb one (msm_sorted.cu's)."""
+    epilogue, ereduce_wide, emul and the NTT's field check; 24 limbs
+    (BW6-761's Fq, where emul and mixed_add_lm run) in ereduce_wide,
+    accumulate_lm and the field check of the NTT and mulacc_walk
+    (cuda.NL32_FIELD); 24 limbs over Fq2 (no curve has one) at the wide
+    walk's C entry point, and 24 limbs at the 8- and 12-limb one
+    (msm_sorted.cu's)."""
     from zokrates_tpu_torch.kernels import cuda
     from zokrates_tpu_torch.kernels import pallas_field as pf
 
@@ -1512,8 +1582,14 @@ def test_wrappers_refuse_unbuilt_widths(dev):
         pf.ereduce_wide(P512, t)
     with pytest.raises(ValueError, match="got nl=32"):
         pf.emul(P512, t, t)
+    qbw6 = g1_group(BW6).q
     with pytest.raises(ValueError, match="16 or 24 16-bit limbs, got nl=48"):
-        cuda.field_params(g1_group(BW6).q, None, cuda.NL32_FIELD)
+        cuda.field_params(qbw6, None, cuda.NL32_FIELD)
+    with pytest.raises(ValueError, match="16 or 24 16-bit limbs, got nl=48"):
+        pf.ereduce_wide(qbw6, torch.zeros((1, 3, 48), dtype=torch.int64, device=dev))
+    rows = torch.zeros((2 * 48, 256), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16 or 24 16-bit limbs, got nl=48"):
+        pf.accumulate_lm(qbw6, torch.zeros((2, 256), dtype=torch.int32, device=dev), rows, rows)
     assert (dict(ms.LAUNCHES), dict(pf.LAUNCHES)) == before
     lib = cuda.load()
     q = g1_group(BW6).q

@@ -7,13 +7,15 @@ their plain versions, against the JAX package's field ops
     (row stride 0), and a taken in place from a larger tensor (a batch
     stride that is not L*nl), as the h stage calls it;
   * emul over BLS12-381's base field (24 limbs, the width its GM17 proving
-    key's queries take on the card), b shared and one row;
+    key's queries take on the card) and BW6-761's (48 limbs, its GM17
+    key's queries), b shared and one row;
   * the CUDA emul kernel's tile walk (csrc/field_elementwise.cu), replayed
     on the CPU: the persistent blocks' tiles cover every (batch, row) once,
     the kernel's word offsets read a strided a and shared, full and
-    stride-0 b, ragged last tiles included, and the products equal the
-    JAX field product; its shared-memory swizzle sends a quarter warp's
-    16-byte reads to eight distinct bank groups;
+    stride-0 b, ragged last tiles included (tiles of EMUL_TILE[n32]
+    elements: 128 at 8 and 12 32-bit limbs, 64 at 24), and the products
+    equal the JAX field product; its shared-memory swizzle sends a quarter
+    warp's 16-byte reads to eight distinct bank groups at every width;
   * ereduce_wide on lazy column sums up to 2^31 (the reference's u32
     headroom), and its CUDA kernel's tile walk (emul's over one operand)
     replayed on the CPU: every element once, short last tiles;
@@ -37,6 +39,7 @@ from zokrates_tpu_torch.kernels import pallas_field as pf
 P = JP.SCALAR_FIELDS["bn128"].p
 NL = 16
 Q381 = JP.BASE_FIELDS["bls12_381"].p
+QBW6 = JP.BASE_FIELDS["bw6_761"].p
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -98,12 +101,23 @@ def test_emul_matches_reference(jf, kind):
 def test_emul_24_limbs_matches_reference(kind):
     """BLS12-381's Fq (nl = 24): the queries' conversion to Montgomery form
     (one row, R^2) and a shared table."""
-    B, L, nl = 2, 30, 24
-    a = _elems((B, L), seed=12, p=Q381, nl=nl)
-    b = _elems((L,), seed=13, p=Q381, nl=nl) if kind == "shared" else _elems((), seed=14, p=Q381, nl=nl)
+    _check_wide_emul(Q381, 24, kind, 12)
+
+
+@pytest.mark.parametrize("kind", ["shared", "row"])
+def test_emul_48_limbs_matches_reference(kind):
+    """BW6-761's Fq (nl = 48): GM17's query points to Montgomery form (one
+    row, R^2) and a shared table."""
+    _check_wide_emul(QBW6, 48, kind, 15)
+
+
+def _check_wide_emul(p, nl, kind, seed):
+    B, L = 2, 30
+    a = _elems((B, L), seed=seed, p=p, nl=nl)
+    b = _elems((L,), seed=seed + 1, p=p, nl=nl) if kind == "shared" else _elems((), seed=seed + 2, p=p, nl=nl)
     tb = torch.as_tensor(b) if kind == "shared" else torch.as_tensor(b).expand(L, nl)
-    want = _jmul(jfield_ops(Q381), a, np.broadcast_to(b, (B, L, nl)))
-    got = pf.emul(Q381, torch.as_tensor(a), tb)
+    want = _jmul(jfield_ops(p), a, np.broadcast_to(b, (B, L, nl)))
+    got = pf.emul(p, torch.as_tensor(a), tb)
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
 
 
@@ -116,13 +130,13 @@ def _chunk_slot(n32, e, c):
 
 def _emul_tile_walk(B, L, grid, n32, a_bs, b_bs, b_rs):
     """Word offsets that emul_kernel reads and writes, replayed: block
-    `blk` of `grid` takes tiles blk, blk + grid, ... of EMUL_TILE elements
+    `blk` of `grid` takes tiles blk, blk + grid, ... of EMUL_TILE[n32] elements
     of one batch row (the last of a row short), copies a's (and, unless b's
     row stride is 0, b's) 16-byte chunks tile by tile, and stores the
     products. Returns (out, a, b) offsets in int64 words of each element's
     first word, by element, in the order the stores go out; b's is the row
     read once a tile where b_rs == 0."""
-    TE = pf.EMUL_TILE
+    TE = pf.EMUL_TILE[n32]
     tpr = -(-L // TE)
     outs, aoffs, boffs = [], [], []
     for blk in range(grid):
@@ -143,30 +157,34 @@ def _emul_tile_walk(B, L, grid, n32, a_bs, b_bs, b_rs):
     return np.concatenate(outs), np.concatenate(aoffs), np.concatenate(boffs)
 
 
-@pytest.mark.parametrize("n32", [8, 12])
+@pytest.mark.parametrize("n32", [8, 12, 24])
 def test_emul_swizzle_spreads_banks(n32):
     """A quarter warp (8 threads, consecutive elements) reading chunk c of
     its own element hits 8 distinct 16-byte bank groups, and the copy's 8
     consecutive chunks land on 8 distinct groups too."""
-    for e0 in range(0, pf.EMUL_TILE, 8):
+    TE = pf.EMUL_TILE[n32]
+    for e0 in range(0, TE, 8):
         for c in range(n32):
             assert len({_chunk_slot(n32, e, c) % 8 for e in range(e0, e0 + 8)}) == 8
-    q = np.arange(pf.EMUL_TILE * n32)
+    q = np.arange(TE * n32)
     slots = _chunk_slot(n32, q // n32, q % n32)
     assert all(len(set((slots[i:i + 8] % 8).tolist())) == 8 for i in range(0, len(q), 8))
 
 
 @pytest.mark.parametrize("kind,L,grid", [("strided", 300, 5), ("shared", 256, 1), ("row", 130, 64),
-                                         ("full", 1, 3), ("row24", 200, 2)])
+                                         ("full", 1, 3), ("row24", 200, 2), ("row48", 150, 2),
+                                         ("shared48", 64, 1), ("strided48", 70, 3)])
 def test_emul_tile_walk_replay(jf, kind, L, grid):
     """The kernel's tile walk over a of a (B, 3, L) tensor's [:, 0] (batch
     stride 3*L*nl), b shared (batch stride 0), full, or one row (row
-    stride 0, at 16 and 24 limbs); L ragged (300 = 2 * 128 + 44, 130, 200)
-    or one tile, grids smaller and larger than the tile count. Every
-    (batch, row) is stored once, and the products of the words the walk
-    reads equal the JAX product."""
+    stride 0, at 16, 24 and 48 limbs); L ragged (300 = 2 * 128 + 44, 130,
+    200; at 48 limbs, tiles of 64: 150 = 2 * 64 + 22, 70) or one tile,
+    grids smaller and larger than the tile count. Every (batch, row) is
+    stored once, and the products of the words the walk reads equal the
+    JAX product."""
     B = 3
-    p, nl = (Q381, 24) if kind == "row24" else (P, NL)
+    p, nl = (Q381, 24) if kind == "row24" else (QBW6, 48) if kind.endswith("48") else (P, NL)
+    kind = kind.rstrip("0123456789")
     n32 = nl // 2
     abc = _elems((B, 3, L), seed=20 + L, p=p, nl=nl)
     a_flat = abc.reshape(-1)

@@ -13,6 +13,9 @@ kernels mixed_add_lm and accumulate_lm state they share).
   * both again at 12 32-bit limbs (BLS12-381's Fq, 24 16-bit limbs), the
     mixed add also with every Jacobian Z within 2^8 of q, the
     accumulation at 4 and 16 buckets;
+  * the mixed add at 24 32-bit limbs (BW6-761's Fq, 48 16-bit limbs, the
+    width of a contribution's ladder on BW6-761), with the same edge cases
+    and Z random or within 2^8 of q;
   * the wrappers' checks of dtype, shape, block and device, and that CPU
     calls count no launch.
 
@@ -289,3 +292,63 @@ def test_accumulate_lm_12_limbs_matches_bucket_fold(jadd12, nb):
         np.testing.assert_array_equal(g.numpy().transpose(0, 2, 1).astype(np.int64), w)
     assert (got[2].numpy()[2, :, 1] == 0).all()  # lane 1's bucket 2: P + (-P)
     assert pf.LAUNCHES["accumulate_lm"] == before
+
+
+# ---------------------------------------------------------------------------
+# 24 limbs: BW6-761's base field (48 16-bit limbs), the width of a
+# contribution's ladder to a BW6-761 key (no path accumulates at 24 limbs)
+# ---------------------------------------------------------------------------
+
+GRP24 = g1_group("bw6_761")
+Q24 = GRP24.q
+NL24 = 48
+
+
+@pytest.fixture(scope="module")
+def jadd24():
+    """The JAX complete mixed add over BW6-761's Fq, (N, 48) limbs."""
+    ops = curve_ops(Q24)
+    fn = jax.jit(lambda X, Y, Z, qx, qy: ops.mixed_add((X, Y, Z), qx, qy))
+
+    def add(P, qx, qy):
+        out = fn(*(jnp.asarray(a.astype(np.uint32)) for a in (*P, qx, qy)))
+        return tuple(np.asarray(o).astype(np.int64) for o in out)
+
+    return add
+
+
+def _mont24(xs):
+    rm = (1 << (16 * NL24)) % Q24
+    return ints_to_limbs([x * rm % Q24 for x in xs], NL24).astype(np.int64)
+
+
+@pytest.mark.parametrize("z", ["random", "near_q"])
+def test_mixed_add_lm_24_limbs_matches_reference(jadd24, z):
+    rng = random.Random(31)
+    pts = [GRP24.generator() * rng.randrange(1, GRP24.r) for _ in range(4)]
+    P, Qa, cases = [], [], []
+    for i in range(N):
+        kind = ("general", "infinity", "double", "cancel")[i % 4]
+        qpt = pts[i % len(pts)]
+        ppt = {"general": pts[(i + 1) % len(pts)], "infinity": None, "double": qpt, "cancel": -qpt}[kind]
+        if ppt is None:
+            P.append((rng.randrange(Q24), rng.randrange(Q24), 0))
+        else:
+            zz = Q24 - rng.randrange(1, 1 << 8) if z == "near_q" else rng.randrange(1, Q24)
+            P.append((ppt.x * zz * zz % Q24, ppt.y * zz ** 3 % Q24, zz))
+        Qa.append(qpt)
+        cases.append(kind)
+    Pm = tuple(_mont24([p[c] for p in P]) for c in range(3))
+    qx, qy = _mont24([q.x for q in Qa]), _mont24([q.y for q in Qa])
+    want = jadd24(Pm, qx, qy)
+    before = pf.LAUNCHES["mixed_add_lm"]
+    got = pf.mixed_add_lm(Q24, *(_lm(a) for a in (*Pm, qx, qy)), block=8)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.shape == (NL24, N)
+        np.testing.assert_array_equal(g.numpy().T.astype(np.int64), w)
+    zrows = got[2].numpy().T
+    for i, kind in enumerate(cases):  # the edge cases were reached
+        assert (zrows[i] == 0).all() == (kind == "cancel")
+        if kind == "infinity":
+            assert (zrows[i] == _mont24([1])[0]).all()
+    assert pf.LAUNCHES["mixed_add_lm"] == before

@@ -40,11 +40,14 @@ def g1_point(curve: str, xy) -> PointG1:
     return grp.zero() if xy is None else PointG1(grp, int(xy[0]), int(xy[1]))
 
 
-def g2_point(curve: str, xy) -> PointG2:
-    """((x.c0, x.c1), (y.c0, y.c1)) ints, or None for infinity -> PointG2."""
+def g2_point(curve: str, xy):
+    """((x.c0, x.c1), (y.c0, y.c1)) ints, or None for infinity -> PointG2;
+    where G2 lies over Fq (BW6-761), (x, y) ints -> the group's PointG1."""
     grp = g2_group(curve)
     if xy is None:
         return grp.zero()
+    if not hasattr(grp, "tower"):
+        return PointG1(grp, int(xy[0]), int(xy[1]))
     (x0, x1), (y0, y1) = xy
     return PointG2(grp, Fq2(grp.tower, int(x0), int(x1)), Fq2(grp.tower, int(y0), int(y1)))
 
@@ -52,9 +55,10 @@ def g2_point(curve: str, xy) -> PointG2:
 def proving_key(curve: str, domain_size: int, num_instance: int,
                 points: Dict[str, object], arrays: Dict[str, np.ndarray]) -> ProvingKey:
     """points: PK_G1 names -> (x, y) ints, PK_G2 names -> ((x0, x1),
-    (y0, y1)) ints. arrays: PK_ARRAYS names -> numpy arrays in the JAX
-    package's layout (uint32 packed rows, bool masks, uint32 weights);
-    PK_OPTIONAL names may be absent or None; b2_p128 may be None, and then
+    (y0, y1)) ints ((x, y) ints where G2 lies over Fq: g2_point). arrays:
+    PK_ARRAYS names -> numpy arrays in the JAX package's layout (uint32
+    packed rows, bool masks, uint32 weights); PK_OPTIONAL names may be
+    absent or None; b2_p128 may be None, and then
     PK_B2_XY names give the b2 query's coordinates ((m, 2, nl) uint32)."""
     wide = arrays.get("b2_p128", ()) is None
     need = [k for k in PK_ARRAYS if not (wide and k == "b2_p128")] + list(PK_B2_XY if wide else ())
@@ -81,9 +85,10 @@ def gm17_proving_key(curve: str, domain_size: int, num_instance: int, num_r1cs_v
                      points: Dict[str, object], queries: Dict[str, list],
                      sap: Dict[str, list]) -> GM17ProvingKey:
     """The GM17 proving key. points: GM17_G1 names -> (x, y) ints, GM17_G2
-    names -> ((x0, x1), (y0, y1)) ints. queries: GM17_G1_QUERIES names ->
-    lists of (x, y) ints or None, "b_query" -> a list of ((x0, x1), (y0,
-    y1)) ints or None. sap: GM17_SAP names -> the SAP rows as lists of
+    names -> ((x0, x1), (y0, y1)) ints ((x, y) ints where G2 lies over Fq,
+    BW6-761; g2_point). queries: GM17_G1_QUERIES names -> lists of (x, y)
+    ints or None, "b_query" -> a list of G2 coordinates as GM17_G2's, or
+    None. sap: GM17_SAP names -> the SAP rows as lists of
     (index, coefficient) pairs ("sap_pairs": a list of such row pairs)."""
     missing = [k for k in GM17_G1 + GM17_G2 if k not in points] + [
         k for k in GM17_G1_QUERIES + ("b_query",) if k not in queries

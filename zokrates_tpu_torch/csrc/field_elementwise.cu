@@ -2,7 +2,8 @@
 //
 // emul_kernel replaces the JAX package's Pallas elementwise product
 // (zokrates_tpu/kernels/pallas_field.py: _emul_call / emul): one Montgomery
-// product a*b*R^-1 mod p per element, at N = 8 or 12 32-bit limbs.
+// product a*b*R^-1 mod p per element, at N = 8, 12 or 24 32-bit limbs (24:
+// BW6-761's 761-bit base field, GM17's query points over it).
 // ereduce_kernel replaces its lazy-sum reduction (_ereduce_call /
 // ereduce_wide): a carry sweep of the column sums gives 16-bit limbs res
 // and a carry out, and res*R + carry*(2^(32N)*R mod p), each part through
@@ -15,12 +16,14 @@
 // element against its 4N B of payload. An emul reads two operands and
 // writes one, 384 B at N = 8, against one CIOS product (264 32-bit
 // multiplies): at 3.35 TB/s and 16.75e12 multiplies/s the bytes take about
-// 7x longer than the multiplies (4.5x at N = 12); ereduce_wide moves 256 B
-// per element for two products. A narrower public layout is a later change.
+// 7x longer than the multiplies (4.5x at N = 12; 1.7x at N = 24, where a
+// read and a write of 384 B an element, b one row, meet 2,328 multiplies);
+// ereduce_wide moves 256 B per element for two products. A narrower public
+// layout is a later change.
 //
 // Both kernels run one tile walk (tile_walk), a byte-bound design: a block
-// of kEmulThreads threads walks tiles of kEmulTile consecutive elements of
-// one batch row, tile blockIdx.x, then every gridDim.x-th after it (the
+// of kEmulThreads threads walks tiles of emul_tile(N) consecutive elements
+// of one batch row, tile blockIdx.x, then every gridDim.x-th after it (the
 // grid is as many blocks as fit on the card at once, so every block stays
 // resident). Each tile's operands travel as 16-byte cp.async copies,
 // consecutive threads on consecutive 16 B of device memory, into shared
@@ -29,11 +32,20 @@
 // 32-bit limb (its two int64 words); chunk c of tile element e sits at e*N
 // + (c ^ swz(e)), so the threads of a quarter warp, each reading chunk c
 // of its own element, hit eight distinct 16-byte bank groups (swz: e mod 8
-// at N = 8, (e/2) mod 4 at N = 12, both permuting c within an aligned
-// group of 8 or 4 chunks). Each thread computes kEmulPerThread elements,
-// their chains independent, with the inlined mont_mul, and writes the
-// results over the input's chunks, from where the tile leaves as 16-byte
-// stores, coalesced like the loads; the last tile of a row may be short.
+// at N = 8 and 24, (e/2) mod 4 at N = 12, permuting c within an aligned
+// group of 8 or 4 chunks: one group at 8, three at 24). Each thread
+// computes emul_per_thread(N) elements, their chains independent, and
+// writes the results over the input's chunks, from where the tile leaves
+// as 16-byte stores, coalesced like the loads; the last tile of a row may
+// be short.
+//
+// At 8 and 12 limbs a thread computes 2 elements with the inlined
+// mont_mul, a tile is 128 elements and a block's two buffers of a and b
+// take 64 or 96 KB of shared memory. At 24 limbs a tile of 128 would take
+// 192 KB, one block an SM: there a thread computes 1 element, a tile is 64
+// (96 KB with b's tile, 48 KB without), and the product is field.cuh's
+// out-of-line mul (a 24-limb CIOS product is 2,328 multiplies; inlined
+// twice a thread it would lengthen nvcc's compile for no gain).
 //
 // emul: b takes two forms: rows in a tile of its own (shared by the batch
 // with a batch stride of 0, or one row per batch element), or one element
@@ -58,8 +70,9 @@ using namespace zkt;
 namespace {
 
 constexpr int kEmulThreads = 64;  // a block of the tile walk
-constexpr int kEmulPerThread = 2;
-constexpr int kEmulTile = kEmulThreads * kEmulPerThread;  // elements a tile
+// elements a thread computes, and a tile's elements, at N 32-bit limbs
+__host__ __device__ constexpr int emul_per_thread(int N) { return N == 24 ? 1 : 2; }
+__host__ __device__ constexpr int emul_tile(int N) { return kEmulThreads * emul_per_thread(N); }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -73,7 +86,7 @@ __device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wai
 // shared-memory slot of chunk c (limb c) of tile element e
 template <int N>
 __device__ __forceinline__ int chunk_slot(int e, int c) {
-  static_assert(N % 4 == 0, "the swizzle permutes aligned groups of 4 chunks");
+  static_assert(N % 4 == 0, "the swizzle permutes aligned groups of 4 or 8 chunks");
   const int s = (N % 8 == 0) ? (e & 7) : ((e >> 1) & 3);
   return e * N + (c ^ s);
 }
@@ -94,7 +107,7 @@ template <int N, bool B_ROW>
 __device__ __forceinline__ void issue_tile(longlong2* buf, const int64_t* a, const int64_t* b,
                                            long long bi, long long r0, int cnt, long long a_bs,
                                            long long b_bs) {
-  constexpr int kChunks = kEmulTile * N;
+  constexpr int kChunks = emul_tile(N) * N;
   const longlong2* ga = reinterpret_cast<const longlong2*>(a + bi * a_bs + r0 * 2 * N);
   for (int q = threadIdx.x; q < cnt * N; q += kEmulThreads) {
     const int e = q / N;
@@ -116,7 +129,7 @@ __device__ __forceinline__ void issue_tile(longlong2* buf, const int64_t* a, con
 //                     64-bit division of the tile by the tiles of a row;
 //   issue(buf, bi, r0, cnt)   starts the copies of the cnt elements from
 //                     element r0 of batch row bi into buffer buf;
-//   compute(ta, bi, x)  the results of this thread's kEmulPerThread
+//   compute(ta, bi, x)  the results of this thread's emul_per_thread(N)
 //                     elements (threadIdx.x + k*kEmulThreads) of the tile
 //                     in buffer ta, into x.
 // The results go back over the tile's first operand as 16-bit limbs and
@@ -134,13 +147,14 @@ template <int N, class Op>
 __device__ __forceinline__ void tile_walk(const Op& op, int64_t* __restrict__ out, long long L,
                                           long long tiles_per_row, long long ntiles) {
   extern __shared__ __align__(16) longlong2 tile_smem[];
-  constexpr int kBuf = Op::kOperands * kEmulTile * N;  // one buffer: the operands' tiles
+  constexpr int kTile = emul_tile(N), kPerThread = emul_per_thread(N);
+  constexpr int kBuf = Op::kOperands * kTile * N;  // one buffer: the operands' tiles
   long long tile = blockIdx.x;
   if (tile >= ntiles) return;
   {
     const long long bi = tile_row<Op>(tile, tiles_per_row);
-    const long long r0 = (tile - bi * tiles_per_row) * kEmulTile;
-    op.issue(tile_smem, bi, r0, (int)min((long long)kEmulTile, L - r0));
+    const long long r0 = (tile - bi * tiles_per_row) * kTile;
+    op.issue(tile_smem, bi, r0, (int)min((long long)kTile, L - r0));
   }
   cp_async_commit();
   int stage = 0;
@@ -148,21 +162,21 @@ __device__ __forceinline__ void tile_walk(const Op& op, int64_t* __restrict__ ou
     const long long next = tile + gridDim.x;
     if (next < ntiles) {
       const long long bi = tile_row<Op>(next, tiles_per_row);
-      const long long r0 = (next - bi * tiles_per_row) * kEmulTile;
-      op.issue(tile_smem + (stage ^ 1) * kBuf, bi, r0, (int)min((long long)kEmulTile, L - r0));
+      const long long r0 = (next - bi * tiles_per_row) * kTile;
+      op.issue(tile_smem + (stage ^ 1) * kBuf, bi, r0, (int)min((long long)kTile, L - r0));
     }
     cp_async_commit();
     cp_async_wait_one();  // this tile's copies (all but the group just committed)
     __syncthreads();
 
     const long long bi = tile_row<Op>(tile, tiles_per_row);
-    const long long r0 = (tile - bi * tiles_per_row) * kEmulTile;
-    const int cnt = (int)min((long long)kEmulTile, L - r0);
+    const long long r0 = (tile - bi * tiles_per_row) * kTile;
+    const int cnt = (int)min((long long)kTile, L - r0);
     longlong2* ta = tile_smem + stage * kBuf;
-    Fq<N> x[kEmulPerThread];
+    Fq<N> x[kPerThread];
     op.compute(ta, bi, x);
 #pragma unroll
-    for (int k = 0; k < kEmulPerThread; ++k) {
+    for (int k = 0; k < kPerThread; ++k) {
       const int e = threadIdx.x + k * kEmulThreads;
 #pragma unroll
       for (int c = 0; c < N; ++c) ta[chunk_slot<N>(e, c)] = make_longlong2(x[k].v[c] & 0xFFFFu, x[k].v[c] >> 16);
@@ -193,18 +207,24 @@ struct EmulTile {
   }
 
   __device__ __forceinline__ void compute(const longlong2* ta, long long bi, Fq<N>* x) const {
-    Fq<N> y[kEmulPerThread];
+    constexpr int kPerThread = emul_per_thread(N);
+    Fq<N> y[kPerThread];
 #pragma unroll
-    for (int k = 0; k < kEmulPerThread; ++k) {
+    for (int k = 0; k < kPerThread; ++k) {
       const int e = threadIdx.x + k * kEmulThreads;
       x[k] = load_slots<N>(ta, e);
       if constexpr (B_ROW)
         y[k] = load_wide<N>(b + bi * b_bs);
       else
-        y[k] = load_slots<N>(ta + kEmulTile * N, e);
+        y[k] = load_slots<N>(ta + emul_tile(N) * N, e);
     }
 #pragma unroll
-    for (int k = 0; k < kEmulPerThread; ++k) x[k] = mont_mul(x[k], y[k], P);
+    for (int k = 0; k < kPerThread; ++k) {
+      if constexpr (N == 24)
+        x[k] = mul(x[k], y[k], P);
+      else
+        x[k] = mont_mul(x[k], y[k], P);
+    }
   }
 };
 
@@ -271,14 +291,15 @@ struct EreduceTile {
   }
 
   __device__ __forceinline__ void compute(const longlong2* ta, long long, Fq<N>* x) const {
-    uint64_t carry[kEmulPerThread];
+    constexpr int kPerThread = emul_per_thread(N);
+    uint64_t carry[kPerThread];
 #pragma unroll
-    for (int k = 0; k < kEmulPerThread; ++k) {
+    for (int k = 0; k < kPerThread; ++k) {
       const int e = threadIdx.x + k * kEmulThreads;
       carry[k] = carry_sweep<N>([&](int i) { return ta[chunk_slot<N>(e, i)]; }, x[k]);
     }
 #pragma unroll
-    for (int k = 0; k < kEmulPerThread; ++k) x[k] = fold_carry(x[k], carry[k], r2, P);
+    for (int k = 0; k < kPerThread; ++k) x[k] = fold_carry(x[k], carry[k], r2, P);
   }
 };
 
@@ -293,7 +314,7 @@ __global__ void __launch_bounds__(kEmulThreads) ereduce_kernel(const int64_t* __
 // an element, its words read straight from device memory. Launch latency
 // bounds them, and the tile walk's copy through shared memory made them
 // slower (PERF.md).
-constexpr int kEreduceLaneMax = kEmulTile;  // totals up to one tile
+constexpr int kEreduceLaneMax = emul_tile(8);  // totals up to one tile (128 at 8 and 12 limbs)
 
 template <int N>
 __global__ void __launch_bounds__(kEreduceLaneMax) ereduce_lane_kernel(const int64_t* __restrict__ t,
@@ -324,7 +345,7 @@ template <int N, bool B_ROW>
 int launch_emul(const int64_t* a, const int64_t* b, int64_t* out, long long B, long long L,
                 long long a_bs, long long b_bs, const uint32_t* p, const uint32_t* one, uint32_t n0,
                 cudaStream_t stream) {
-  constexpr size_t smem = 2 * (B_ROW ? 1 : 2) * kEmulTile * N * sizeof(longlong2);
+  constexpr size_t smem = 2 * (B_ROW ? 1 : 2) * emul_tile(N) * N * sizeof(longlong2);
   // blocks resident on the card at once, found on the first launch
   static long long max_grid = 0;
   if (max_grid == 0) {
@@ -332,7 +353,7 @@ int launch_emul(const int64_t* a, const int64_t* b, int64_t* out, long long B, l
     if (e != cudaSuccess) return (int)e;
   }
   const FieldParams<N> P = make_params<N>(p, one, n0, 0);
-  const long long tiles_per_row = (L + kEmulTile - 1) / kEmulTile;
+  const long long tiles_per_row = (L + emul_tile(N) - 1) / emul_tile(N);
   const long long ntiles = B * tiles_per_row;
   const unsigned grid = (unsigned)(ntiles < max_grid ? ntiles : max_grid);
   emul_kernel<N, B_ROW><<<grid, kEmulThreads, smem, stream>>>(a, b, out, L, tiles_per_row, ntiles, a_bs,
@@ -340,10 +361,19 @@ int launch_emul(const int64_t* a, const int64_t* b, int64_t* out, long long B, l
   return (int)cudaGetLastError();
 }
 
+// emul at N limbs: b one row (b_rs 0) or packed rows
+template <int N>
+int emul_at(const int64_t* a, const int64_t* b, int64_t* out, long long B, long long L, long long a_bs,
+            long long b_bs, long long b_rs, const uint32_t* p, const uint32_t* one, uint32_t n0,
+            cudaStream_t s) {
+  return b_rs == 0 ? launch_emul<N, true>(a, b, out, B, L, a_bs, b_bs, p, one, n0, s)
+                   : launch_emul<N, false>(a, b, out, B, L, a_bs, b_bs, p, one, n0, s);
+}
+
 template <int N>
 int launch_ereduce(const int64_t* t, int64_t* out, long long total, const uint32_t* r2, const uint32_t* p,
                    const uint32_t* one, uint32_t n0, cudaStream_t stream) {
-  constexpr size_t smem = 2 * kEmulTile * N * sizeof(longlong2);
+  constexpr size_t smem = 2 * emul_tile(N) * N * sizeof(longlong2);
   static long long max_grid = 0;
   if (max_grid == 0 && total > kEreduceLaneMax) {
     const cudaError_t e = resident_blocks(ereduce_kernel<N>, smem, &max_grid);
@@ -356,7 +386,7 @@ int launch_ereduce(const int64_t* t, int64_t* out, long long total, const uint32
     ereduce_lane_kernel<N><<<1, kEreduceLaneMax, 0, stream>>>(t, out, total, r2v, P);
     return (int)cudaGetLastError();
   }
-  const long long ntiles = (total + kEmulTile - 1) / kEmulTile;
+  const long long ntiles = (total + emul_tile(N) - 1) / emul_tile(N);
   const unsigned grid = (unsigned)(ntiles < max_grid ? ntiles : max_grid);
   ereduce_kernel<N><<<grid, kEmulThreads, smem, stream>>>(t, out, total, ntiles, r2v, P);
   return (int)cudaGetLastError();
@@ -366,25 +396,23 @@ int launch_ereduce(const int64_t* t, int64_t* out, long long total, const uint32
 
 extern "C" {
 
-// Elements a tile of emul_kernel: kernels/pallas_field.EMUL_TILE must match.
-int zkt_emul_tile() { return kEmulTile; }
+// Elements a tile of emul_kernel at n32 32-bit limbs (0 at a width it has
+// no instantiation of): kernels/pallas_field.EMUL_TILE[n32] must match.
+int zkt_emul_tile(int n32) { return n32 == 8 || n32 == 12 || n32 == 24 ? emul_tile(n32) : 0; }
 
 // a: (B, L) elements of n32 32-bit limbs (2*n32 int64 words each) at
 // a + bi*a_bs + r*2*n32, rows packed; b at b + bi*b_bs + r*b_rs, with b_rs
 // either 2*n32 (packed rows) or 0 (one element per batch row); out: (B, L)
 // elements, packed. Strides in int64 words; a_bs and b_bs may be 0, and
-// every element starts on 16 bytes. n32 is 8 or 12.
+// every element starts on 16 bytes. n32 is 8, 12 or 24.
 int zkt_emul(const int64_t* a, const int64_t* b, int64_t* out, long long B, long long L,
              long long a_bs, long long b_bs, long long b_rs, int n32, const uint32_t* p,
              const uint32_t* one, uint32_t n0, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (b_rs != 0 && b_rs != 2 * n32) return (int)cudaErrorInvalidValue;
-  if (n32 == 8)
-    return b_rs == 0 ? launch_emul<8, true>(a, b, out, B, L, a_bs, b_bs, p, one, n0, s)
-                     : launch_emul<8, false>(a, b, out, B, L, a_bs, b_bs, p, one, n0, s);
-  if (n32 == 12)
-    return b_rs == 0 ? launch_emul<12, true>(a, b, out, B, L, a_bs, b_bs, p, one, n0, s)
-                     : launch_emul<12, false>(a, b, out, B, L, a_bs, b_bs, p, one, n0, s);
+  if (n32 == 8) return emul_at<8>(a, b, out, B, L, a_bs, b_bs, b_rs, p, one, n0, s);
+  if (n32 == 12) return emul_at<12>(a, b, out, B, L, a_bs, b_bs, b_rs, p, one, n0, s);
+  if (n32 == 24) return emul_at<24>(a, b, out, B, L, a_bs, b_bs, b_rs, p, one, n0, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -12,15 +12,22 @@
 // accumulate_kernel the column sums themselves.
 //
 // Both are templates over N, the 32-bit limbs of an element: N = 8 for
-// BN254's base field, N = 12 for the BLS12 base fields; the C entry points
-// take nl and refuse another width.
+// BN254's base field, N = 12 for the BLS12 base fields, and for the mixed
+// add N = 24 for BW6-761's base field (a contribution to a BW6-761 key; no
+// path accumulates at 24 limbs, so accumulate_kernel has no 24-limb
+// instantiation); the C entry points take nl and refuse another width.
 //
 // What bounds them on an H100: a mixed add reads 5 coordinates and writes
-// 3 (512 B per point at 8 limbs as int32 rows of 16-bit limbs, 768 B at 12)
-// against 11 Montgomery products (2904 32-bit multiplies at 8 limbs, 6468
-// at 12): at 3.35 TB/s and 16.75e12 multiplies/s the two take about the
-// same time at 8 limbs, so the mixed add sits at the roofline's ridge, and
-// it is bound by operations at 12. The accumulation reads 132 B per lane
+// 3 (512 B per point at 8 limbs as int32 rows of 16-bit limbs, 768 B at 12,
+// 1,536 B at 24) against 11 Montgomery products (2904 32-bit multiplies at
+// 8 limbs, 6468 at 12, 25,608 at 24): at 3.35 TB/s and 16.75e12
+// multiplies/s the two take about the same time at 8 limbs, so the mixed
+// add sits at the roofline's ridge, and it is bound by operations at 12
+// and 24. At 24 limbs a thread holds five 24-word coordinates before its
+// temporaries, more than the 255 registers a thread may have: ptxas spills
+// the rest to local memory (its report is in chip_smoke.py's build log);
+// the products are field.cuh's out-of-line mul, as at every width. The
+// accumulation reads 132 B per lane
 // and step and writes n_buckets * 192 B per lane once, against 11 products
 // per step: bound by operations at chunk_len = 16.
 //
@@ -146,7 +153,7 @@ int accumulate_at(const int32_t* digits, const int32_t* Qx, const int32_t* Qy, i
 extern "C" {
 
 // X, Y, Z, Qx, Qy, oX, oY, oZ: (2*nl, N) int32 limb-major rows; block
-// threads per CUDA block. nl 32-bit limbs per element (8 or 12; another
+// threads per CUDA block. nl 32-bit limbs per element (8, 12 or 24; another
 // returns cudaErrorInvalidValue, launching nothing); p and one as nl
 // little-endian 32-bit limbs, n0 = -p^-1 mod 2^32.
 int zkt_mixed_add_lm(const int32_t* X, const int32_t* Y, const int32_t* Z, const int32_t* Qx,
@@ -155,6 +162,7 @@ int zkt_mixed_add_lm(const int32_t* X, const int32_t* Y, const int32_t* Z, const
   cudaStream_t s = (cudaStream_t)stream;
   if (nl == 8) return mixed_add_at<8>(X, Y, Z, Qx, Qy, oX, oY, oZ, N, block, p, one, n0, s);
   if (nl == 12) return mixed_add_at<12>(X, Y, Z, Qx, Qy, oX, oY, oZ, N, block, p, one, n0, s);
+  if (nl == 24) return mixed_add_at<24>(X, Y, Z, Qx, Qy, oX, oY, oZ, N, block, p, one, n0, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -40,11 +40,13 @@ ARCH = "arch=compute_90a,code=sm_90a"
 # 32-bit limbs per element the MSM kernels are instantiated for: 8 (BN254's
 # and the Pasta base fields) and 12 (the BLS12 base fields) in
 # msm_sorted.cu, 24 (BW6-761's base field, over Fq only: BW6's G2 lies
-# over Fq too) in msm_sorted_wide.cu, entry points zkt_msm_wide_*
+# over Fq too) in msm_sorted_wide.cu, entry points zkt_msm_wide_*; emul and
+# mixed_add_lm take the same widths (24: GM17's query points over
+# BW6-761's Fq, a contribution's ladder over its G1)
 NL32 = (8, 12, 24)
-# the widths of the other kernels: emul, ereduce_wide, the NTT, the matvec
-# walk and the point kernels (8 and 12; the probe at 8): the 254/255-bit
-# scalar fields and the 377-bit ones (BW6-761's r, the BLS12 base fields)
+# the widths of the other kernels: ereduce_wide, the NTT, the matvec walk
+# and accumulate_lm (8 and 12; the probe at 8): the 254/255-bit scalar
+# fields and the 377-bit ones (BW6-761's r, the BLS12 base fields)
 NL32_FIELD = (8, 12)
 
 _LIB: Optional[SimpleNamespace] = None
@@ -102,7 +104,7 @@ def load() -> SimpleNamespace:
         },
         "zkt_field": {
             "zkt_emul": [P, P, P, LL, LL, LL, LL, LL, I, L, L, U, P],
-            "zkt_emul_tile": [],
+            "zkt_emul_tile": [I],
             "zkt_ereduce_wide": [P, P, LL, I, L, L, L, U, P],
         },
         "zkt_ntt": {
@@ -141,8 +143,9 @@ def load() -> SimpleNamespace:
                            f"msm_sorted.SUFFIX_BLOCK says {SUFFIX_BLOCK}")
     from .pallas_field import EMUL_TILE
 
-    if fns.zkt_emul_tile() != EMUL_TILE:
-        raise RuntimeError(f"csrc/field_elementwise.cu runs tiles of {fns.zkt_emul_tile()} elements, "
+    tiles = {n: fns.zkt_emul_tile(n) for n in NL32}
+    if tiles != EMUL_TILE:
+        raise RuntimeError(f"csrc/field_elementwise.cu runs tiles of {tiles} elements by width, "
                            f"pallas_field.EMUL_TILE says {EMUL_TILE}")
     _LIB = fns
     return fns

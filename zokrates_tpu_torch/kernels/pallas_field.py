@@ -43,9 +43,10 @@ LAUNCHES: Counter = Counter()
 # launches of emul, ereduce_wide, mulacc_walk and the point kernels by
 # width: (kernel, 32-bit limbs) -> launches
 WIDTH_LAUNCHES: Counter = Counter()
-# elements a tile of csrc/field_elementwise.cu's emul_kernel (its
-# zkt_emul_tile(); kernels/cuda.load checks that they agree)
-EMUL_TILE = 128
+# elements a tile of csrc/field_elementwise.cu's emul_kernel by width in
+# 32-bit limbs (its zkt_emul_tile(n32); kernels/cuda.load checks that they
+# agree): 64 at 24 limbs keeps a block's buffers at 96 KB of shared memory
+EMUL_TILE = {8: 128, 12: 128, 24: 64}
 
 
 def field_for(p: int, beta=None):
@@ -188,8 +189,8 @@ def _check_aligned(name, t, batch_stride: int):
 
 def emul(p: int, a, b):
     """Elementwise Montgomery product a*b*R^-1 mod p (CUDA kernel
-    emul_kernel, the reference's emul), over a field of 16 or 24 16-bit
-    limbs (8 or 12 32-bit limbs on the card).
+    emul_kernel, the reference's emul), over a field of 16, 24 or 48 16-bit
+    limbs (8, 12 or 24 32-bit limbs on the card).
 
     a: (B, L, nl) int64 16-bit limbs with packed rows (any batch stride, so
     a[:, i] of a larger array is taken in place); b: (L, nl), shared by the
@@ -221,7 +222,7 @@ def emul(p: int, a, b):
     _check_aligned("a", a, a_bs)
     _check_aligned("b", b, b_bs)
     lib = cuda.load()
-    n32, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32_FIELD)
+    n32, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32)
     out = torch.empty((B, L, nl), dtype=torch.int64, device=a.device)
     if out.numel() == 0:
         return out
@@ -407,8 +408,8 @@ def mixed_add_lm(p: int, X, Y, Z, Qx, Qy, block: int = 256):
     (CUDA kernel mixed_add_kernel, the reference's mixed_add_lm).
 
     X, Y, Z (Jacobian, Z = 0 at infinity) and Qx, Qy (affine): (nl, N)
-    int32 rows of canonical 16-bit Montgomery limbs, contiguous, nl 16 or
-    24 (the kernel's 8 or 12 32-bit limbs; another raises); N a
+    int32 rows of canonical 16-bit Montgomery limbs, contiguous, nl 16, 24
+    or 48 (the kernel's 8, 12 or 24 32-bit limbs; another raises); N a
     multiple of block (the kernel's threads per block). Returns the sum as
     new (X, Y, Z), same layout: P at infinity gives (Qx, Qy, one), P == Q
     the doubling, P == -Q Z = 0. CPU tensors take mixed_add_lm_plain; CUDA
@@ -427,7 +428,7 @@ def mixed_add_lm(p: int, X, Y, Z, Qx, Qy, block: int = 256):
     from . import cuda
 
     lib = cuda.load()
-    n32, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32_FIELD)
+    n32, pl, one, n0, _ = cuda.field_params(p, None, cuda.NL32)
     out = torch.empty((3, nl, N), dtype=torch.int32, device=X.device)
     if N == 0:
         return out[0], out[1], out[2]

@@ -37,9 +37,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ec.curve import PointG1, PointG2, g1_group, g2_group
+from ..ec.curve import PointG1, g1_group, g2_group
 from ..ec.pairing import pairing_product_is_one
-from ..ec.tower import Fq2
 from ..fields import params as P
 from ..fields.jfield import field_ops
 from ..fields.limbs import ints_to_limbs, n_limbs
@@ -50,6 +49,8 @@ from ..kernels.pallas_field import emul
 from .groth16 import (
     _fb_mul_g1,
     _fb_mul_g2,
+    _g2_beta,
+    _g2_from_affine,
     _lagrange_at_tau,
     _mont_elems,
     _msm_dev_g2,
@@ -122,7 +123,7 @@ def r1cs_to_sap(r1cs: R1CS, p: int) -> SAP:
 @dataclass
 class ProvingKey:
     """GM17 proving key, field for field the reference's: query points as
-    affine (x, y) ints (G2: PointG2), None where the query's scalar is 0.
+    affine (x, y) ints (G2: host points), None where the query's scalar is 0.
     The prover packs the queries into device rows at first use (dev()),
     cached per device and never pickled."""
 
@@ -131,11 +132,11 @@ class ProvingKey:
     num_instance: int
     num_r1cs_vars: int
     a_query: List[Optional[Tuple[int, int]]]
-    b_query: List[Optional[PointG2]]
+    b_query: List[Optional[object]]  # G2 points: PointG2, or over Fq (BW6-761) the group's PointG1
     c_query: List[Optional[Tuple[int, int]]]  # witness-indexed
     h_query: List[Tuple[int, int]]  # G^{gamma^2 t x^j}, j = 0..n-1
     g_gamma_t: PointG1
-    h_gamma_t: PointG2
+    h_gamma_t: object  # a G2 point, as b_query's
     g_gamma2_t2: PointG1
     g_ab_t: PointG1
     sap_pairs: List[Tuple[Row, Row]]
@@ -150,9 +151,9 @@ class ProvingKey:
 
     def dev(self, device) -> Dict[str, torch.Tensor]:
         """The queries on `device`, each padded to a power of two: G1 as
-        packed rows (pack_points), G2 as Fq2 coordinates (N, 2, nl), all
-        Montgomery; a point at infinity (None) is a zero row whose mask is
-        False."""
+        packed rows (pack_points), G2 as Fq2 coordinates (N, 2, nl), or
+        (N, nl) where G2 lies over Fq (BW6-761), all Montgomery; a point at
+        infinity (None) is a zero row whose mask is False."""
         key = torch.device(device)
         if key not in self._dev:
             q = P.BASE_FIELDS[self.curve].p
@@ -161,7 +162,7 @@ class ProvingKey:
                 pts = [None if pt is None or pt[0] is None else pt for pt in getattr(self, name + "_query")]
                 d[name], d[name + "_mask"] = _g1_rows(q, pts, device)
             pts = [None if pt is None or pt.infinity else pt for pt in self.b_query]
-            d["bx"], d["by"], d["b_mask"] = _g2_coords(q, pts, device)
+            d["bx"], d["by"], d["b_mask"] = _g2_coords(q, pts, _g2_beta(self.curve) is None, device)
             self._dev[key] = d
         return self._dev[key]
 
@@ -182,12 +183,19 @@ def _g1_rows(q: int, pts, device):
     return pack_points(q, X, Y), _query_mask(pts, N, device)
 
 
-def _g2_coords(q: int, pts, device):
-    """PointG2 or None -> x, y (N, 2, nl) Montgomery and mask (N,)."""
+def _g2_coords(q: int, pts, over_fq: bool, device):
+    """G2 points or None -> x, y Montgomery and mask (N,): (N, 2, nl)
+    over Fq2, (N, nl) where G2 lies over Fq (BW6-761, as _msm_dev_g2 takes
+    them there)."""
     N = _msm_tier(len(pts))
-    cs = [(0, 0, 0, 0) if pt is None else (pt.x.c0, pt.x.c1, pt.y.c0, pt.y.c1) for pt in pts]
-    cs += [(0, 0, 0, 0)] * (N - len(pts))
-    xy = _mont_elems(q, [c for v in cs for c in v], device).reshape(N, 2, 2, -1)
+    if over_fq:
+        cs = [(0, 0) if pt is None else (pt.x, pt.y) for pt in pts] + [(0, 0)] * (N - len(pts))
+        shape = (N, 2, -1)
+    else:
+        cs = [(0, 0, 0, 0) if pt is None else (pt.x.c0, pt.x.c1, pt.y.c0, pt.y.c1) for pt in pts]
+        cs += [(0, 0, 0, 0)] * (N - len(pts))
+        shape = (N, 2, 2, -1)
+    xy = _mont_elems(q, [c for v in cs for c in v], device).reshape(shape)
     return xy[:, 0].contiguous(), xy[:, 1].contiguous(), _query_mask(pts, N, device)
 
 
@@ -198,7 +206,8 @@ def _g2_coords(q: int, pts, device):
 
 def _fb_affine(curve: str, group: str, scalars: List[int], device):
     """Fixed-base s_i * G -> host affine coordinates, None at infinity: (x,
-    y) ints for G1, ((x0, x1), (y0, y1)) for G2."""
+    y) ints for G1, ((x0, x1), (y0, y1)) for G2 over Fq2, (x, y) ints for
+    G2 over Fq."""
     from ..kernels.fixed_base import fixed_base_for
 
     grp = g1_group(curve) if group == "g1" else g2_group(curve)
@@ -250,10 +259,7 @@ def setup(r1cs: R1CS, rng=None, device="cuda") -> Tuple[ProvingKey, Verification
     c_query = g1_pts[nv : 2 * nv - ni]
     h_query = [pt if pt is not None else (None, None) for pt in g1_pts[2 * nv - ni : 2 * nv - ni + n]]
     query = [g1grp.zero() if pt is None else PointG1(g1grp, *pt) for pt in g1_pts[2 * nv - ni + n :]]
-    b_query = [
-        None if pt is None else PointG2(g2grp, Fq2(g2grp.tower, *pt[0]), Fq2(g2grp.tower, *pt[1]))
-        for pt in _fb_affine(curve, "g2", a_s, device)
-    ]
+    b_query = [None if pt is None else _g2_from_affine(g2grp, pt) for pt in _fb_affine(curve, "g2", a_s, device)]
 
     pk = ProvingKey(
         curve=curve,
